@@ -13,31 +13,16 @@ Per symbol (one polarization pair, window half-width L, indL = 2L+1):
   (indL^2 * 6) and the C-weighted reduction (indL^2 * 8).
 - IXPM/ISPM: O(indL) — negligible.
 
-The contraction is elementwise/VPU work feeding a C-matrix reduction (XLA
-fuses the window tensor into the reduce, so it is compute-bound on the VPU,
-not an HBM roofline); 'AMR' prunes coefficient cells below coeffTol.
+The contraction is elementwise work feeding a C-matrix reduction (XLA
+fuses the window tensor into the reduce, so it is compute-bound, not
+bandwidth-bound); 'AMR' prunes coefficient cells below coeffTol.
 
-Prints one JSON line per configuration. Run: python bench_pert.py [--cpu]
-
-Measured on TPU v5e (round 5, 2^16 symbols, after the shifted-copy
-slice fix — gathers on this backend run at ~0.6 GB/s and were 90 of the
-old 126 ms call): L=25 FFT lag-product form 2.41 Msym/s single /
-7.83 Msym/s vmapped batch-8 aggregate (the single call is
-dispatch-bound), chunked oracle 2.16, AMR pruned 2.45, L=50 FFT 1.94
-Msym/s (553 GFLOP/s window-equivalent). Round-4 numbers for comparison:
-0.53 / 0.30 / 0.30 / 0.29.
+Prints one JSON line per configuration. Run: ``python bench_pert.py``
+(``JAX_PLATFORMS=cpu`` for a CPU run).
 """
 
 import json
-import os
-import sys
 import time
-
-if "--cpu" in sys.argv:
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

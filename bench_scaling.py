@@ -5,25 +5,19 @@ batch axis sharded over the mesh `data` axis, at 1, 2, ..., n_devices chips,
 and reports samples/s/chip and weak-scaling efficiency (the north-star
 >=80% target, BASELINE.md).
 
-On this environment only one real TPU chip is reachable, so multi-chip rows
-run on the virtual CPU mesh (pass ``--cpu`` and set
-``XLA_FLAGS=--xla_force_host_platform_device_count=8``) — that validates the
-machinery and the sharding layout; true ICI efficiency needs real multi-chip
-hardware (virtual-mesh 'efficiency' reflects host-core contention).
+Run on the machine's devices (``python bench_scaling.py``), or on a virtual
+CPU mesh to check the sharding layout without accelerators::
 
-Prints one JSON line per mesh size. Not invoked by the driver.
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python bench_scaling.py
+
+(virtual-mesh "efficiency" reflects host-core contention, not the
+interconnect). Prints one JSON line per mesh size; not part of
+``bench.py``.
 """
 
 import json
-import os
-import sys
 import time
-
-if "--cpu" in sys.argv:
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -141,7 +135,7 @@ def sp_scaling():
     """Sequence-parallel weak scaling: ONE signal's time axis grows with chips.
 
     Each chip owns an equal time chunk of a single polmux signal
-    (manakov_ssf_sp); halos are refreshed over ICI once per span. The fixed
+    (manakov_ssf_sp); halos are refreshed once per span. The fixed
     per-chip FFT work makes this weak scaling on the sample axis — the
     framework's long-signal story (SURVEY.md §5).
     """

@@ -1,7 +1,7 @@
 """10G OOK IM-DD link: BER vs received power, measured against theory.
 
-TPU-native analog of the reference example ``basic_OOK_transmission.ipynb``
-(BASELINE.json config 1). Runs on CPU or TPU; saves ``ook_ber.png``.
+JAX analog of the reference example ``basic_OOK_transmission.ipynb``
+(BASELINE.json config 1). Runs on CPU or GPU; saves ``ook_ber.png``.
 
 Usage: python examples/basic_ook_transmission.py [--cpu]
 """

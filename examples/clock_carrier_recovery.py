@@ -64,7 +64,7 @@ est = float(np.ravel(ppm_est)[0])
 print(f"clock recovery: applied {1e6*ppm_true:.0f} ppm sampling offset, "
       f"NCO tracked {abs(est):.0f} ppm (sign = NCO correction direction)")
 
-# --- feedforward clock recovery (TPU-first, no recurrence) -----------------
+# --- feedforward clock recovery (no recurrence) ----------------------------
 from opticommpy_tpu.dsp.clock_recovery import (  # noqa: E402
     FFWClockRecoveryConfig,
     ffw_clock_recovery,

@@ -1,6 +1,6 @@
 """Coherent 16-QAM polmux over the nonlinear Manakov channel, full DSP chain.
 
-TPU-native analog of the reference ``test_WDM_transmission.ipynb`` flagship
+JAX analog of the reference ``test_WDM_transmission.ipynb`` flagship
 workload (BASELINE.json config 3): WDM Tx -> Manakov SSFM + EDFAs -> PDM
 coherent receiver -> matched filter -> decimation -> EDC -> sync -> MIMO
 adaptive EQ -> BPS carrier recovery -> BER/GMI/EVM. Saves ``wdm_const.png``.

@@ -1,7 +1,7 @@
 """Tour of the DSP core primitives: resampling, clock interpolation with
 jitter, quantization, fractional delay, and overlap-save convolution.
 
-TPU-native analog of the reference example ``test_dsp_core_functions.ipynb``.
+JAX analog of the reference example ``test_dsp_core_functions.ipynb``.
 Saves ``dsp_core_functions.png``.
 
 Usage: python examples/dsp_core_functions.py [--cpu]

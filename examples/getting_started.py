@@ -4,7 +4,7 @@ This is the migration showcase: the code below is (almost) line-for-line the
 reference ``examples/getting_started.ipynb`` — 10 Gb/s NRZ OOK over 100 km
 with direct detection — but every ``optic.*`` import is served by
 ``opticommpy_tpu.compat``, which runs the whole flow through JAX/XLA on
-CPU or TPU. The only semantic difference is reproducible randomness: compat
+CPU or GPU. The only semantic difference is reproducible randomness: compat
 functions take explicit ``seed`` arguments instead of global numpy state.
 
 Usage: python examples/getting_started.py [--cpu]

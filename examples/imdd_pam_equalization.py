@@ -1,6 +1,6 @@
 """4-PAM IM-DD link with FFE/DFE equalization (BASELINE config 2).
 
-TPU-native analog of the reference ``test_equalizers_for_IMDD_transmission``
+JAX analog of the reference ``test_equalizers_for_IMDD_transmission``
 workflow: PAM4 Tx -> dispersive fiber -> pin photodiode -> FFE vs DFE.
 
 Usage: python examples/imdd_pam_equalization.py [--cpu]

@@ -1,17 +1,17 @@
 """Batched IM-DD PAM4 serving: B short-reach links through ONE program.
 
-The round-5 IM-DD counterpart of `coded_receiver_serve.py`: B independent
+The IM-DD counterpart of `coded_receiver_serve.py`: B independent
 25 GBd PAM4 10 km dispersive links (PAM Tx -> fiber CD -> pin photodiode)
 are received by :func:`opticommpy_tpu.pipelines.imdd_dsp_chain_batch` —
 DC removal, symbol-rate sampling, per-row normalization and ALL B
-decision-feedback equalizer recurrences on the sublane axis of one VMEM
-Pallas kernel pass, BER computed in-jit. Mirrors the reference IM-DD
+decision-feedback equalizer recurrences (one vmapped XLA scan), BER computed
+in-jit. Mirrors the reference IM-DD
 workload (tx.py:231, equalization.py:1176,
 test_equalizers_for_IMDD_transmission.ipynb) at serving scale, which the
 reference's per-signal Numba loop cannot batch.
 
-Measured (v5e, B=8, 2^16 symbols each): ~11-13 Msym/s aggregate,
-error-free past the training region (bench.py key imdd_chain_Msym_per_s_b8).
+The same chain at B=8, 2^16 symbols each, is bench.py's
+imdd_chain_Msym_per_s_b8 row (error-free past the training region).
 
 Usage: python examples/imdd_serving_at_scale.py [--cpu] [--signals N]
 """
@@ -46,7 +46,7 @@ from opticommpy_tpu.models.tx import PAMTxConfig, pam_transmitter
 from opticommpy_tpu.ops import pnorm
 from opticommpy_tpu.pipelines import IMDDConfig, imdd_dsp_chain_batch
 
-FAST = os.environ.get("OPTICOMMPY_TPU_FAST") == "1"
+FAST = os.environ.get("OPTICOMMPY_FAST") == "1"
 N_SYM = 2**13 if FAST else 2**16
 
 

@@ -1,6 +1,6 @@
 """LDPC-coded 16-QAM over AWGN: coded vs uncoded BER.
 
-TPU-native analog of the reference ``test_fec.ipynb``: encode with a
+JAX analog of the reference ``test_fec.ipynb``: encode with a
 (3,6)-regular LDPC code (or the IEEE 802.11n 648b matrix if a path is given),
 map to 16-QAM, add noise, compute LLRs, and decode with belief propagation.
 

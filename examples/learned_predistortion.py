@@ -13,8 +13,8 @@ filter MSE against the transmitted symbols, with the chromatic dispersion
 ideally compensated at the receiver so the residual error is dominated by
 the Kerr nonlinearity the optimizer must learn to pre-invert.
 
-Runs anywhere (CPU by default, small sizes); on TPU the same program is one
-XLA graph per optimization step. For long links, wrap spans in
+Runs anywhere (CPU by default, small sizes); on a GPU the same program is
+one XLA graph per optimization step. For long links, wrap spans in
 ``jax.checkpoint`` to trade recompute for activation memory.
 """
 

@@ -1,7 +1,7 @@
 """Performance-metrics tour: Monte-Carlo BER/GMI/MI/EVM vs. theory, plus the
 GN-model OSNR estimators.
 
-TPU-native analog of the reference example ``test_metrics.ipynb``
+JAX analog of the reference example ``test_metrics.ipynb``
 (metrics.py:111,329,429,572,640,917,942). All Monte-Carlo sweeps run as one
 jitted, vmapped program per format family — the SNR axis is a batch axis on
 the accelerator instead of a Python loop. Saves ``metrics_tour.png``.

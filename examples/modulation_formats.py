@@ -1,7 +1,7 @@
 """Modulation formats: Gray-mapped constellations through an AWGN channel,
 with density / decision-colored / decision-boundary constellation plots.
 
-TPU-native analog of the reference example ``test_modulation.ipynb``
+JAX analog of the reference example ``test_modulation.ipynb``
 (modulation.py:334,369; plot.py:38,217,288). Saves
 ``modulation_formats.png``.
 

@@ -1,19 +1,18 @@
 """Multi-chip scaling demo: dp / sp / pp Manakov SSFM on a device mesh.
 
 The reference is a single-process library (SURVEY.md §2.3); this framework
-scales its hottest workload — Manakov split-step propagation — across a TPU
-mesh three independent ways:
+scales its hottest workload — Manakov split-step propagation — across a
+device mesh three independent ways:
 
 - **dp** (``manakov_ssf_dp``): WDM channels / launch powers / Monte-Carlo
   seeds sharded over chips; zero collectives in the propagation loop.
 - **sp** (``manakov_ssf_sp``): ONE signal's time axis sharded; each chip
   integrates its halo-padded time chunk locally and refreshes halos from its
-  neighbors over ICI once per span group (the long-signal story).
+  neighbors once per span group (the long-signal story).
 - **pp** (``manakov_ssf_pp``): fiber spans staged across chips; microbatches
   of signals flow stage→stage, GPipe-style.
 
-Runs anywhere: with no TPU pod attached, launch it on a virtual 8-device CPU
-mesh::
+Runs on the machine's devices, or anywhere on a virtual 8-device CPU mesh::
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip_scaling.py --cpu

@@ -1,6 +1,6 @@
 """Nonlinearity compensation with digital backpropagation (DBP).
 
-TPU-native analog of the reference ``test_NLC_withDBP_WDM_transmission.ipynb``
+JAX analog of the reference ``test_NLC_withDBP_WDM_transmission.ipynb``
 (BASELINE.json config 5): a single-channel 16-QAM polmux link propagated with
 the Manakov SSFM is received coherently and equalized twice — once with linear
 chromatic-dispersion compensation (EDC) and once with Manakov digital

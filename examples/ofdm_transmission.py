@@ -1,6 +1,6 @@
 """OFDM transmission over a dispersive channel with pilot equalization.
 
-TPU-native analog of the reference OFDM example workflow: QAM mapping ->
+JAX analog of the reference OFDM example workflow: QAM mapping ->
 OFDM modulation (CP, pilots) -> linear fiber -> demodulation with pilot
 channel estimation -> EVM/BER.
 

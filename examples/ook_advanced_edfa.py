@@ -1,6 +1,6 @@
 """10G OOK receiver pre-amplified by the physical (Giles) EDFA model.
 
-TPU-native analog of the reference example
+JAX analog of the reference example
 ``OOK_transmission_with_advanced_EDFA_model.ipynb``: OOK/NRZ transmitter ->
 VOA sweep -> stateful EDFA (Giles rate/propagation equations with AGC pump
 control, amplification.py:420) -> pin photodiode -> BER vs received power.

@@ -1,6 +1,6 @@
 """Perturbation-based nonlinearity compensation (NLC) on a coherent link.
 
-TPU-native analog of the reference ``test_perturbation_models.ipynb``
+JAX analog of the reference ``test_perturbation_models.ipynb``
 (perturbation.py:505): a single-channel 64-QAM polmux link is propagated with
 the Manakov SSFM across a launch-power sweep (one batched SSFM call), received
 with the linear DSP chain (matched filter, EDC, adaptive MIMO equalizer, BPS
@@ -55,7 +55,7 @@ from opticommpy_tpu.utils.units import ber2qfactor
 M = 64
 RS = 32e9
 SPS = 8
-FAST = os.environ.get("OPTICOMMPY_TPU_FAST") == "1"
+FAST = os.environ.get("OPTICOMMPY_FAST") == "1"
 # FAST: CI smoke shape (fewer symbols, shorter link, smaller matrix)
 N_BITS = 6 * 2**12 if FAST else 6 * 2**14  # symbols per polarization
 LINK_KM, SPAN_KM = (200.0 if FAST else 800.0), 50.0

@@ -1,6 +1,6 @@
 """Pin photodiode model: noise regimes and receiver sensitivity.
 
-TPU-native analog of the reference ``test_photodiode_model.ipynb``: a 10G OOK
+JAX analog of the reference ``test_photodiode_model.ipynb``: a 10G OOK
 signal is detected by the pin photodiode model (``models.devices.photodiode``,
 reference devices.py:289) under four noise configurations — ideal, thermal
 noise only, shot noise only, and both — and the resulting Q-factor is swept

@@ -1,7 +1,7 @@
 """Data-sequence synchronization: align a delayed, repeated received signal
 with the transmitted reference waveform/symbols.
 
-TPU-native analog of the reference example ``test_sequence_synchronizer.ipynb``
+JAX analog of the reference example ``test_sequence_synchronizer.ipynb``
 (synchronization.py:30). Saves ``sequence_synchronizer.png``.
 
 Usage: python examples/sequence_synchronizer.py [--cpu]

@@ -1,7 +1,7 @@
 """Bit and symbol sources: random/PRBS bits, uniform vs. Maxwell-Boltzmann
 shaped symbols, and the Zadoff-Chu CAZAC sequence.
 
-TPU-native analog of the reference example ``test_sources.ipynb``
+JAX analog of the reference example ``test_sources.ipynb``
 (sources.py:23,75,137,215). Saves ``sources_demo.png``.
 
 Usage: python examples/sources_demo.py [--cpu]

@@ -1,6 +1,6 @@
 """11-channel WDM polmux 16-QAM over a multi-span EDFA link (north-star workload).
 
-TPU-native analog of the reference ``test_WDM_amp_transmission`` workflow at
+JAX analog of the reference ``test_WDM_amp_transmission`` workflow at
 the BASELINE.json scale: 11 channels on a 50 GHz grid, Manakov propagation,
 center-channel coherent detection, full DSP chain, GMI/NGMI per polarization.
 
@@ -38,7 +38,7 @@ from opticommpy_tpu.models.tx import WDMTxConfig, simple_wdm_tx
 from opticommpy_tpu.ops import decimate, fir_filter, lowpass_fir, pnorm, pulse_shape, symbol_sync
 
 SMALL = ("--small" in sys.argv
-         or os.environ.get("OPTICOMMPY_TPU_FAST") == "1")
+         or os.environ.get("OPTICOMMPY_FAST") == "1")
 
 
 def main():

@@ -1,6 +1,6 @@
 """WDM transmission with the physical (Giles) EDFA amplifying each span.
 
-TPU-native analog of the reference example ``test_WDM_amp_transmission.ipynb``:
+JAX analog of the reference example ``test_WDM_amp_transmission.ipynb``:
 3-channel polmux 16-QAM WDM -> per span {Manakov SSFM (amp='none') on device,
 stateful Giles EDFA with AGC on host} -> coherent detection of the center
 channel -> full DSP chain -> BER/SNR/GMI. The split mirrors the reference

@@ -1,10 +1,10 @@
-"""OptiCommPy-TPU: a TPU-native fiber-optic communication simulation framework.
+"""``opticommpy_tpu``: a JAX fiber-optic communication simulation framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of OptiCommPy
 (https://github.com/edsonportosilva/OptiCommPy): digital modulation,
 electro-optic transmitters, nonlinear fiber propagation (split-step Fourier),
 coherent/direct-detection receivers, full coherent DSP chains, performance
-metrics, and FEC — designed TPU-first:
+metrics, and FEC — designed for compiled accelerator programs:
 
 - one ``jax.jit`` code path replaces the reference's Numba-CPU/CuPy-GPU split,
 - explicit ``jax.random`` key threading replaces global numpy seeding,
@@ -14,7 +14,7 @@ metrics, and FEC — designed TPU-first:
 
 Array convention (matching the reference): signals are ``(nSamples,)`` or
 ``(nSamples, nModes)`` arrays with time on axis 0 and polarization/WDM modes on
-axis 1. Default precision is complex64 (TPU-friendly).
+axis 1. Default precision is complex64.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Communication-layer algorithms: modulation, sources, metrics, OFDM, FEC.
 
-TPU-native counterpart of the reference ``optic/comm`` package.
+Counterpart of the reference ``optic/comm`` package.
 """
 
 from opticommpy_tpu.comm import codes, fec, metrics, modulation, ofdm, sources  # noqa: F401

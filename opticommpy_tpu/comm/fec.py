@@ -1,6 +1,6 @@
 """Forward error correction: LDPC encode/decode, Hamming codes, ALIST I/O.
 
-TPU-native counterpart of reference ``optic/comm/fec.py``:
+Counterpart of reference ``optic/comm/fec.py``:
 
 - GF(2) preprocessing (Gaussian elimination, triangularization, inversion,
   H->G conversion) stays host-side NumPy — it runs once per code, offline
@@ -18,9 +18,7 @@ TPU-native counterpart of reference ``optic/comm/fec.py``:
   (n, dv_max) pad wastes ~3x gather bandwidth on DVB-S2 R4/5). Check
   updates are row-wise reductions (prefix/suffix tanh-products or
   min1/min2), and variable updates GATHER each variable's incident edges
-  via precomputed index maps (scatter-free: batched scatter-adds crash the
-  XLA:TPU compiler on some runtimes, and gathers are faster on TPU
-  regardless). Codewords batch on a trailing axis; early stopping is
+  via precomputed index maps (scatter-free). Codewords batch on a trailing axis; early stopping is
   realized by freezing converged codewords under a fixed iteration scan
   (bit-identical results to per-codeword early exit). A uniformly padded
   single-bucket variant (`_bp_decode_batch`) is kept for the compat shims.
@@ -410,13 +408,6 @@ class LDPCConfig:
     # their own convergence; QC decoder only). while_loop, so wall time
     # tracks the slowest codeword instead of maxIter.
     earlyExit: bool = False
-    # BP message-passing schedule: 'flooding' (the reference's; all
-    # backends bit-comparable) or 'layered' (serial-C inside the DVB-S2
-    # QC megakernel only — ~1.8x fewer sweeps to convergence, cashed via
-    # earlyExit; decisions can differ from flooding on marginal
-    # codewords, FER equal or better). 'layered' raises for non-QC
-    # graphs.
-    schedule: str = "flooding"
 
 
 def _padded_rows(rows, cols, m, dmax=None, fill=0):
@@ -550,9 +541,8 @@ def ldpc_graph_from_edges(n, m, rows, cols):
     edge_var = cn_idx.reshape(-1)
     # variable-side inverse map: the flat edge ids incident to each variable,
     # padded with E (which indexes a zero sentinel appended to the flat
-    # message array). Turns the variable update into a GATHER — scatter-adds
-    # (segment_sum) under vmap crash the XLA:TPU compiler on some runtimes
-    # and are slower than gathers on TPU anyway.
+    # message array). Turns the variable update into a GATHER instead of a
+    # scatter-add (segment_sum) under vmap.
     E = edge_var.size
     flat_e = np.flatnonzero(cn_mask.reshape(-1))
     v = edge_var[flat_e]
@@ -588,7 +578,7 @@ def standard_ldpc(mode="DVBS2", n=64800, R="4/5"):
     graph = ldpc_graph_from_edges(*edges)
     if mode == "DVBS2":
         # quasi-cyclic layout: BP via cyclic rolls instead of gathers
-        # (fec_qc.py; ~7x decode throughput on TPU at n=64800)
+        # (fec_qc.py)
         graph["qc"] = {"n": n, "R": R if isinstance(R, str) else str(R)}
     else:
         # 802.11n / AR4JA are lifted-circulant too: same roll-based
@@ -683,8 +673,8 @@ def _check_update_spa_dense(x):
     """SPA check update on one exactly-dense (m_b, d_b) bucket.
 
     Leave-one-out products as explicit prefix/suffix slab chains (cumprod
-    lowers to O(log d) full-tensor passes on TPU; the chain streams each
-    (m_b, 1) slab once — same association order, identical results)."""
+    lowers to O(log d) full-tensor passes; the chain streams each (m_b, 1)
+    slab once — same association order, identical results)."""
     d = x.shape[1]
     t = jnp.tanh(x / 2.0)
     one = jnp.ones_like(t[:, :1])
@@ -703,9 +693,8 @@ def _check_update_spa_dense(x):
 def _check_update_msa_dense(x):
     """Min-sum check update on one exactly-dense (m_b, d_b) bucket.
 
-    Exact exclusive-min via prefix/suffix min chains — no argmin (the
-    argmin and sign-product forms crash the XLA:TPU compiler under vmap)
-    and no cumsum (O(log d) full-tensor passes); sign via total parity XOR
+    Exact exclusive-min via prefix/suffix min chains — no argmin and no
+    cumsum (O(log d) full-tensor passes); sign via total parity XOR
     own sign."""
     d = x.shape[1]
     mag = jnp.abs(x)
@@ -816,19 +805,15 @@ def _bp_decode(llr, cn_idx, cn_mask, vn_edge, n, max_iter, alg):
     def check_update_msa(msg_vc):
         mag = jnp.where(cn_mask, jnp.abs(msg_vc), jnp.inf)
         min1 = jnp.min(mag, axis=1, keepdims=True)
-        # first-occurrence-of-min mask without argmin (argmin over the padded
-        # axis crashes/hangs the XLA:TPU compiler under vmap on this runtime);
-        # duplicate minima resolve like argmin: first copy excluded, min2 =
+        # first-occurrence-of-min mask without argmin; duplicate minima resolve like argmin: first copy excluded, min2 =
         # the surviving copy
         at_min = mag == min1
         is_min1 = at_min & (jnp.cumsum(at_min, axis=1) == 1)
         min2 = jnp.min(jnp.where(is_min1, jnp.inf, mag), axis=1, keepdims=True)
         out_mag = jnp.where(is_min1, min2, min1)
-        # leave-one-out sign via parity of the OTHER negative messages — a
-        # float sign-product reduction feeding the min dataflow also
-        # SIGSEGVs the XLA:TPU compiler under vmap; the integer-parity form
-        # is equivalent (sign(0) counts as +1, like the reference) and
-        # compiles fine
+        # leave-one-out sign via parity of the OTHER negative messages (an
+        # integer parity, equivalent to the sign product: sign(0) counts as
+        # +1, like the reference)
         neg = ((msg_vc < 0) & cn_mask).astype(jnp.int32)
         others = jnp.sum(neg, axis=1, keepdims=True) - neg
         out_sgn = (1 - 2 * (others % 2)).astype(msg_vc.dtype)
@@ -898,10 +883,6 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
 
     qc = graph.get("qc")
     lift = graph.get("lift")
-    if config.schedule == "layered" and qc is None:
-        raise ValueError(
-            "LDPCConfig.schedule='layered' is implemented for DVB-S2 "
-            "quasi-cyclic graphs only (the megakernel); use 'flooding'")
     if config.earlyExit and qc is None and lift is None:
         import warnings
 
@@ -915,8 +896,7 @@ def decode_ldpc(llrs, H=None, config: LDPCConfig = LDPCConfig(), graph=None):
 
         dec = fec_qc.make_qc_decoder(
             qc["n"], qc["R"], int(config.maxIter), config.alg,
-            config.msgDtype, bool(config.earlyExit),
-            schedule=config.schedule)
+            config.msgDtype, bool(config.earlyExit))
         out_llr, n_iters, fail = dec(llrs)
     elif lift is not None:
         # 802.11n / AR4JA lifted-circulant path: rolls, not gathers

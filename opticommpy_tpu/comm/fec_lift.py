@@ -1,8 +1,7 @@
 """Lifted-circulant belief-propagation decoder (IEEE 802.11n, AR4JA).
 
-Round 2 gave DVB-S2 a quasi-cyclic decoder whose permutations lower to
-cyclic rolls of (360, B) planes instead of XLA gathers (comm/fec_qc.py,
-~5-6x: gathers on this TPU backend reach only ~60-110 GB/s). The other two
+DVB-S2 has a quasi-cyclic decoder whose permutations lower to cyclic rolls
+of (360, B) planes instead of XLA gathers (comm/fec_qc.py). The other two
 standard families are *also* lifted-circulant:
 
 - **IEEE 802.11n** (comm/codes.py:109): H is an (mb, 24) base of Z x Z
@@ -164,49 +163,18 @@ def _roll(p, sh, L):
     return jnp.concatenate([p[-sh:], p[:-sh]], axis=0)
 
 
+@lru_cache(maxsize=None)
 def make_lift_decoder(mode, n, R, max_iter, alg="MSA", msg_dtype="f32",
-                      early_exit=False, backend="auto"):
+                      early_exit=False):
     """Jitted ``decode(llrs (n_cols, B) f32) -> (out_llr, n_iters, fail)``.
 
     Same contract and semantics as :func:`fec_qc.make_qc_decoder`; the
     code structure (which is all static) comes from :func:`lift_tables`.
     ``early_exit`` runs the iteration as a while_loop that stops once the
     whole batch has converged (identical outputs either way).
-
-    ``backend``: 'xla' runs the per-edge slice-roll iteration; 'pallas'
-    runs each iteration as ONE fused VMEM kernel
-    (:func:`~opticommpy_tpu.kernels.lift_pallas.lift_iter_pallas` —
-    requires a sublane-aligned lift L%8==0, i.e. AR4JA, and MSA/NMSA;
-    decisions/iteration counts identical, totals to f32 sum-order
-    tolerance). 'auto' picks the kernel on an accelerator when eligible.
     """
-    if backend == "auto":
-        # resolved OUTSIDE the lru_cache (the same process may build
-        # decoders under CPU tests and TPU runs). The fused kernel wins
-        # 1.32x at L=512 (AR4JA 8192, v5e B=1024 after the scratch-M
-        # rework) and measures exact parity at L=128 (both paths
-        # VPU-op-bound; CLAUDE.md round-5 continuation notes), so route
-        # to it only where it pays.
-        from opticommpy_tpu.kernels.lift_pallas import lift_budget_ok
-
-        L = lift_tables(mode, n, R)["L"]
-        backend = ("pallas" if jax.default_backend() != "cpu"
-                   and L % 8 == 0 and L >= 512 and alg in ("MSA", "NMSA")
-                   and lift_budget_ok(mode, n, R, msg_dtype)
-                   else "xla")
-    return _make_lift_decoder(mode, n, R, max_iter, alg, msg_dtype,
-                              early_exit, backend)
-
-
-@lru_cache(maxsize=None)
-def _make_lift_decoder(mode, n, R, max_iter, alg, msg_dtype, early_exit,
-                       backend):
     tb = lift_tables(mode, n, R)
     L, V = tb["L"], tb["V"]
-    if backend == "pallas" and (L % 8 != 0 or alg not in ("MSA", "NMSA")):
-        raise ValueError(
-            f"pallas lift backend needs L%8==0 and MSA/NMSA (got L={L}, "
-            f"alg={alg}); use backend='xla'")
     mdt = jnp.bfloat16 if msg_dtype == "bf16" else jnp.float32
     if alg == "SPA":
         check_update = _check_spa_slots
@@ -246,55 +214,6 @@ def _make_lift_decoder(mode, n, R, max_iter, alg, msg_dtype, early_exit,
                 dv, ngv, *planes[0].shape)
             sums.append(jnp.sum(stacked, axis=0, dtype=jnp.float32))
         return llr_bo + jnp.concatenate(sums)
-
-    if backend == "pallas":
-        from opticommpy_tpu.kernels.lift_pallas import lift_iter_pallas
-
-        interpret = jax.default_backend() == "cpu"
-
-        @jax.jit
-        def decode_pallas(llrs):
-            B0 = llrs.shape[1]
-            # pad to the 128-lane kernel tile (pad columns have zero
-            # LLRs -> zero totals -> even parity: they converge at the
-            # first iteration and never hold early exit back)
-            B = B0 if B0 <= 128 else -(-B0 // 128) * 128
-            if B != B0:
-                llrs = jnp.pad(llrs, ((0, 0), (0, B - B0)))
-            llr_bo = llrs.reshape(V, L, B)[var_order]
-            X0 = jnp.concatenate(
-                [x.reshape(-1, L, B) for x in v2c(llr_bo)]).astype(mdt)
-            carry0 = (X0, jnp.zeros(B, bool), llr_bo,
-                      jnp.zeros(B, jnp.int32))
-
-            def iteration(carry, _):
-                X, done, fT, n_iters = carry
-                Xn, T, ok = lift_iter_pallas(
-                    X, llr_bo, mode=mode, n=n, R=R, alg=alg,
-                    msg_dtype=msg_dtype, interpret=interpret)
-                fT = jnp.where(done[None, None, :], fT, T)
-                n_iters = jnp.where(done, n_iters, n_iters + 1)
-                done = done | ok
-                return (Xn, done, fT, n_iters), None
-
-            if early_exit:
-                def cond(state):
-                    it, carry = state
-                    return (it < max_iter) & ~jnp.all(carry[1])
-
-                def w_body(state):
-                    it, carry = state
-                    return it + 1, iteration(carry, None)[0]
-
-                _, (_, done, fT, n_iters) = jax.lax.while_loop(
-                    cond, w_body, (jnp.asarray(0), carry0))
-            else:
-                (_, done, fT, n_iters), _ = jax.lax.scan(
-                    iteration, carry0, None, length=max_iter)
-            out = fT[pos_back].reshape(V * L, B)
-            return out[:, :B0], n_iters[:B0], ~done[:B0]
-
-        return decode_pallas
 
     @jax.jit
     def decode(llrs):

@@ -1,15 +1,13 @@
 """Quasi-cyclic belief-propagation decoder for DVB-S2 LDPC codes.
 
 Why this exists: the general decoder (:mod:`fec`) moves every message
-through XLA gathers, and gathers on this TPU backend achieve only
-~60-110 GB/s (measured; ~7-14 % of v5e HBM bandwidth) — the whole decode is
-gather-bound. The ETSI EN 302 307-1 construction is quasi-cyclic: info bit
+through XLA gathers. The ETSI EN 302 307-1 construction is quasi-cyclic: info bit
 ``i = 360 g + t`` meets checks ``(x + t q) mod m``, i.e. writing checks as a
 ``(Z=360, q)`` plane (``c = q s + a0``), every info edge bundle is a *cyclic
 roll by x//q along the Z axis* of one 360-row plane, and the accumulator
 staircase is a one-position shift in flat check order. Rolls lower to static
-slice+concat pairs — pure streaming copies — so the decode runs at
-HBM-stream bandwidth instead of gather bandwidth.
+slice+concat pairs — pure streaming copies that XLA fuses into the
+neighbouring elementwise passes — so no message moves through a gather.
 
 Message layout: ``X[(S+2), q, Z, B]`` — V->C messages in *check alignment*
 (row s of plane ``(sl, a0)`` belongs to check ``c = q s + a0``). Slots
@@ -31,7 +29,7 @@ points, so bf16 messages differ in the last bf16 ulp between layouts
 (equal BER in the waterfall tests; f32 is bit-identical).
 """
 
-from functools import lru_cache, partial
+from functools import lru_cache
 
 import numpy as np
 
@@ -110,9 +108,8 @@ def _check_msa_slots(x):
     """Min-sum leave-one-out along axis 0 of (D, ...), dtype-preserving.
 
     Exact exclusive-min via prefix/suffix min chains over the D slabs:
-    ``out_mag[i] = min(mag[:i], mag[i+1:])`` — no argmin (crashes the
-    XLA:TPU compiler under batching), no cumsum (XLA lowers length-D cumsum
-    as O(log D) full-tensor passes; the slab chain streams each slab once).
+    ``out_mag[i] = min(mag[:i], mag[i+1:])`` — elementwise chains over a
+    static slot axis, which XLA fuses (no argmin, no cumsum).
     min/sign are exact in bf16, so the whole update runs in the message
     storage dtype. +inf inputs are neutral (masked j=0 staircase slot).
     """
@@ -157,7 +154,7 @@ def _check_spa_slots(x):
 
 @lru_cache(maxsize=None)
 def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32",
-                    early_exit=False, backend="auto", schedule="flooding"):
+                    early_exit=False):
     """Build a jitted ``decode(llrs (n,B) f32) -> (out_llr, n_iters, fail)``.
 
     All graph structure is baked in as static python; the compiled program
@@ -165,85 +162,20 @@ def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32",
     storage dtype of the message carry (math always f32), as in
     :func:`fec._bp_decode_bucketed`.
 
-    ``early_exit=True`` stops iterating at convergence — identical
-    outputs (per-codeword results are frozen at their own convergence
-    either way), but wall time tracks the slowest codeword instead of
-    ``max_iter`` (the reference decoder's default serving behavior,
-    fec.py:494-497). On the megakernel the exit is a per-chunk grid SKIP
-    (each bt-codeword tile stops at its own slowest codeword); on the
-    other backends it is a ``while_loop`` over the whole batch. Keep
-    False when benchmarking fixed-iteration throughput.
-
-    ``backend``: 'mega' = whole decode in one resident-totals Pallas
-    kernel (kernels/qc_mega.py — fastest; early exit as per-chunk skip);
-    'fused' = the round-3 fully-fused Pallas iteration (kernels/
-    qc_pallas.py — X never materialized, rolls as in-VMEM dynamic
-    rotates); 'pallas' = XLA rolls + Pallas check update; 'xla' = pure
-    XLA; 'auto' = 'mega' for MSA/NMSA on accelerators ('fused' when the
-    config exceeds the megakernel's VMEM/lane-alignment budget), 'xla'
-    on CPU.
-
-    ``schedule``: 'flooding' (default — the reference's schedule, all
-    backends bit-comparable) or 'layered' (serial-C inside the megakernel
-    ONLY: in-place totals, later check columns see earlier columns' new
-    messages within a sweep — ~1.7x fewer sweeps to convergence, realized
-    as wall time through ``early_exit``; decisions can differ from
-    flooding on marginal codewords, FER equal or better —
-    waterfall-verified). Layered requires a megakernel-eligible config
-    (batch tile lane-aligned to 128, within the VMEM budget) and raises
-    MegaBudgetError otherwise.
+    ``early_exit=True`` stops iterating once the whole batch has converged
+    (a ``while_loop``) — identical outputs (per-codeword results are frozen
+    at their own convergence either way), but wall time tracks the slowest
+    codeword instead of ``max_iter`` (the reference decoder's default
+    serving behavior, fec.py:494-497). Keep False when benchmarking
+    fixed-iteration throughput. The schedule is flooding, as in the
+    reference.
     """
-    if schedule not in ("flooding", "layered"):
-        raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule == "layered" and backend not in ("mega", "auto"):
-        raise ValueError("schedule='layered' runs inside the megakernel "
-                         "only (backend 'mega' or 'auto')")
     tb = qc_tables(R, n)
     k, m, q, G, S = tb["k"], tb["m"], tb["q"], tb["G"], tb["S"]
     g_tab, s_tab = tb["g_tab"], tb["s_tab"]
     pos_of_g = tb["pos_of_g"]
     order_rows = tb["order_rows"]  # numpy: builders may run under a trace
-    on_accel = jax.default_backend() != "cpu"
-    use_fused = backend in ("fused", "mega") or (
-        backend == "auto" and alg in ("MSA", "NMSA") and on_accel)
-    if schedule == "layered" and not (
-            use_fused and (backend == "mega" or on_accel)):
-        raise ValueError(
-            "schedule='layered' needs the megakernel (MSA/NMSA on an "
-            "accelerator, or backend='mega' explicitly for interpret "
-            "mode)")
-    if use_fused:
-        # 'mega' = whole decode in one resident-totals kernel
-        # (kernels/qc_mega.py). Round-4 re-measurement (after fixing the
-        # aliased-M feedback that silently fell back in round 3):
-        # sign-exact vs 'fused' at every rate, and FASTER — v5e NMSA-20
-        # bf16 R4/5: +11% at B=128, +24% at B=256, +46% at B=512 (357 vs
-        # 245 Mbit/s); R9/10 +10%, R1/4 parity. The totals traffic DOES
-        # matter at batch. Round 5 added the per-chunk early-exit skip,
-        # so 'auto' prefers mega on accelerators for early_exit too
-        # (measured at serving SNR: the fused while_loop never catches
-        # the fixed-20 mega at B=512 — 300-399 vs 436 Mbit/s — while
-        # mega+skip keeps the resident-totals speed AND stops early);
-        # only the VMEM/lane-alignment budget routes back to multi-kernel.
-        want_mega = backend == "mega" or (backend == "auto" and on_accel)
-        return _make_fused_decoder(tb, max_iter, alg, msg_dtype,
-                                   early_exit, want_mega, schedule)
-    # ``backend``: 'pallas' fuses the check update into one VMEM-resident
-    # Pallas pass (one HBM read + one write vs ~5 re-streams as XLA slab
-    # ops); 'auto' uses it for MSA/NMSA on accelerator backends and the
-    # XLA chain on CPU (where Pallas needs interpret mode). Results are
-    # bit-identical either way.
-    use_pallas = backend == "pallas" or (
-        backend == "auto" and alg in ("MSA", "NMSA")
-        and jax.default_backend() != "cpu")
-    if use_pallas:
-        from opticommpy_tpu.kernels.ldpc_pallas import check_update_msa_pallas
-
-        alpha = 0.75 if alg == "NMSA" else None
-
-        def check_update(x):
-            return check_update_msa_pallas(x, alpha)
-    elif alg == "SPA":
+    if alg == "SPA":
         check_update = _check_spa_slots
     elif alg == "NMSA":
         # normalized min-sum (alpha=0.75, exact in bf16; see fec._NMSA_ALPHA)
@@ -305,7 +237,8 @@ def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32",
         def iteration(carry, _):
             X, done, fT, fTp, n_iters = carry
             Xm = X.at[S + 1, 0, 0].set(jnp.inf)  # no p_{-1} at check 0
-            M = check_update(Xm)  # dtype-preserving
+            with jax.named_scope("ldpc_check"):  # profiler attribution
+                M = check_update(Xm)  # dtype-preserving
             T = llr_info + c2v_info_sum(M)
             Mp = M[S + 1].astype(jnp.float32).at[0, 0].set(0.0)
             shiftback = jnp.concatenate(
@@ -345,198 +278,5 @@ def make_qc_decoder(n, R, max_iter, alg="MSA", msg_dtype="f32",
         out_info = fT[jnp.asarray(pos_of_g)].reshape(G * Z, B)
         out_p = fTp.transpose(1, 0, 2).reshape(m, B)
         return jnp.concatenate([out_info, out_p]), n_iters, ~done
-
-    return decode
-
-
-def _make_fused_decoder(tb, max_iter, alg, msg_dtype, early_exit,
-                        want_mega=False, schedule="flooding"):
-    """Fully-fused Pallas QC decoder (round 3): carry ``(M, T, Tp)``.
-
-    The edge tensor X = v2c(T) - M is never materialized — the check-column
-    kernel recomputes it in VMEM from the totals (kernels/qc_pallas.py).
-    Because the parity vote of iteration j's totals is only observable when
-    the NEXT check-column pass reads them, the done/freeze bookkeeping runs
-    one step delayed: step k folds ok_{k} (parity of the step's INPUT
-    totals, discarded at k=0 where they are the raw channel LLRs), so the
-    loop runs max_iter+1 steps and the final (phantom) step only
-    contributes its parity vote. Outputs (frozen totals, n_iters, fail)
-    are semantically identical to the XLA path; f32 message sums differ
-    only in accumulation order (sequential adds vs XLA reduce tree).
-
-    Reference semantics: /root/reference/optic/comm/fec.py:505,:684.
-    """
-    from opticommpy_tpu.kernels.qc_pallas import (
-        check_column_update, pick_bt, tile_batch, untile_batch,
-        var_totals_update)
-
-    if alg not in ("MSA", "NMSA"):
-        raise ValueError("fused QC decoder supports MSA/NMSA only")
-    alpha = 0.75 if alg == "NMSA" else None
-    k, m, q, G, S = tb["k"], tb["m"], tb["q"], tb["G"], tb["S"]
-    g_tab, s_tab = tb["g_tab"], tb["s_tab"]
-    pos_of_g = tb["pos_of_g"]
-    # all builder-level tables stay NUMPY: make_qc_decoder may first run
-    # inside an outer jit trace (e.g. coherent_coded_serve), where
-    # jnp.asarray would bind tracer constants that leak through lru_cache
-    order_rows = tb["order_rows"]
-    mdt = jnp.bfloat16 if msg_dtype == "bf16" else jnp.float32
-    msize = jnp.dtype(mdt).itemsize
-    interpret = jax.default_backend() == "cpu"
-
-    # check-kernel tables: (S, q) T-plane index / roll per column
-    pos_tab = np.ascontiguousarray(pos_of_g[g_tab].T)  # (S, q)
-    sh_tab = np.ascontiguousarray(s_tab.T % Z)
-    bsh_tab = np.ascontiguousarray((Z - s_tab.T) % Z).astype(np.int32)
-    # variable-kernel tables: per bucket, (d, ng) slot / column / back-roll
-    sl_tabs, col_tabs, sh_tabs = [], [], []
-    for ea in tb["ent_addr"]:  # (ng, d, 3) of (a0, slot, shift)
-        sl_tabs.append(np.ascontiguousarray(ea[:, :, 1].T).astype(np.int32))
-        col_tabs.append(np.ascontiguousarray(ea[:, :, 0].T).astype(np.int32))
-        sh_tabs.append(
-            np.ascontiguousarray((Z - ea[:, :, 2]) % Z).T.copy().astype(
-                np.int32))
-    buckets = tb["buckets"]
-    K = max_iter + 1
-
-    @jax.jit
-    def decode(llrs):
-        B_in = llrs.shape[1]
-        bt = pick_bt(B_in, S, msize, msize)
-        if want_mega and bt % 128:
-            from opticommpy_tpu.kernels.qc_mega import (MEGA_VMEM_BUDGET,
-                                                        mega_state_bytes)
-
-            # the megakernel needs lane-aligned tiles, and VMEM pads the
-            # (Z, bt) planes to 128 lanes ANYWAY — padding the batch with
-            # +LLR columns (they freeze at the first parity fold; with
-            # early exit they never hold a chunk back) costs nothing and
-            # lets B < 128 batches run mega instead of falling back to
-            # the fused path (round 5; the round-4 B=64 coded receiver
-            # took the fallback for a whole round). Only pad when the
-            # padded tile is actually mega-eligible: if the budget will
-            # reject bt=128 anyway (f32 messages), the FUSED fallback
-            # would otherwise pay real compute on a 16x-padded batch
-            # (XLA does not lane-pad its scan carries).
-            if mega_state_bytes(G, q, S, 128, mdt,
-                                schedule) <= MEGA_VMEM_BUDGET:
-                bt = 128
-        pad = (-B_in) % bt
-        if pad:
-            # +LLR columns decode the all-zeros codeword and freeze at the
-            # first parity fold — no effect on the real columns
-            llrs = jnp.pad(llrs, ((0, 0), (0, pad)), constant_values=200.0)
-        B = B_in + pad
-        nb = B // bt
-        llr_info = tile_batch(
-            llrs[:k].reshape(G, Z, B)[order_rows], nb, bt)
-        llr_p = tile_batch(
-            llrs[k:].reshape(Z, q, B).transpose(1, 0, 2), nb, bt)
-        llr_p4 = llr_p.reshape(nb, q, Z, bt)
-
-        if want_mega:
-            from opticommpy_tpu.kernels.qc_mega import (
-                MEGA_VMEM_BUDGET, MegaBudgetError, mega_state_bytes,
-                qc_decode_mega)
-
-            # explicit pre-check (not try/except): only a genuine budget
-            # overflow or lane-unaligned batch tile falls back; any other
-            # error in the megakernel raises. bt must be a multiple of 128:
-            # the megakernel's manual DMAs slice the lane axis at bt, and
-            # Mosaic rejects sub-tile lane slices on hardware (found by the
-            # B=64 coded receiver: interpret mode compiles, v5e does not)
-            eligible = (mega_state_bytes(G, q, S, bt, mdt, schedule)
-                        <= MEGA_VMEM_BUDGET and bt % 128 == 0)
-            if schedule == "layered" and not eligible:
-                raise MegaBudgetError(
-                    f"schedule='layered' requires a megakernel-eligible "
-                    f"config (bt={bt} lane-aligned and within the VMEM "
-                    "budget); pad the batch to a multiple of 128 or use "
-                    "schedule='flooding'")
-            if eligible:
-                fT, fTp, stats = qc_decode_mega(
-                    llr_info.reshape(nb, G * Z, bt),
-                    llr_p.reshape(nb, q * Z, bt), pos_tab, sh_tab,
-                    bsh_tab, G, K, msg_dtype=mdt, alpha=alpha,
-                    interpret=interpret, early_exit=early_exit,
-                    schedule=schedule)
-                fT = untile_batch(fT.reshape(nb * G, Z, bt), nb, bt)
-                fTp = untile_batch(fTp.reshape(nb * q, Z, bt), nb, bt)
-                done = stats[:, 0].reshape(B) > 0.5
-                n_iters = stats[:, 8].reshape(B).astype(jnp.int32)
-                out_info = fT[jnp.asarray(pos_of_g)].reshape(G * Z, B)
-                out_p = fTp.transpose(1, 0, 2).reshape(m, B)
-                out = jnp.concatenate([out_info, out_p])
-                if pad:
-                    out = out[:, :B_in]
-                    n_iters, done = n_iters[:B_in], done[:B_in]
-                return out, n_iters, ~done
-
-        M0 = jnp.zeros((S + 2, nb * q, Z, bt), mdt)
-        carry0 = (M0, llr_info, llr_info.astype(mdt), llr_p,
-                  llr_p.astype(mdt), llrs[0] != llrs[0], llr_info, llr_p,
-                  (llrs[0] * 0).astype(jnp.int32))
-
-        def step(carry, kk):
-            M, T, Tc, Tp, Tpc, done, fT, fTp, n_iters = carry
-            M_new, par = check_column_update(
-                Tc, Tpc, M, pos_tab, sh_tab, G, alpha=alpha,
-                interpret=interpret)
-            ok_in = (par.reshape(nb, 8, bt)[:, 0] > 0.5).reshape(B)
-            ok = ok_in & (kk > 0)
-            done = done | ok
-            last = kk == K - 1
-            n_iters = n_iters + (~done & ~last)
-            freeze = done | last
-            frz = freeze.reshape(nb, 1, 1, bt)
-            # parity totals (XLA: two plane shifts on the small staircase)
-            Mp = (M_new[S + 1].astype(jnp.float32)
-                  .reshape(nb, q, Z, bt).at[:, 0, 0].set(0.0))
-            shiftback = jnp.concatenate(
-                [Mp[:, 1:], jnp.roll(Mp[:, :1], -1, axis=2)], axis=1)
-            Tp_new = (llr_p4 + M_new[S].astype(jnp.float32).reshape(
-                nb, q, Z, bt) + shiftback).reshape(nb * q, Z, bt)
-            fTp = jnp.where(frz, fTp.reshape(nb, q, Z, bt),
-                            Tp_new.reshape(nb, q, Z, bt)).reshape(
-                nb * q, Z, bt)
-            freeze_f = jnp.broadcast_to(
-                freeze.astype(jnp.float32).reshape(nb, 1, bt),
-                (nb, 8, bt)).reshape(nb * 8, bt)
-            if mdt == jnp.bfloat16:
-                T, fT, Tc = var_totals_update(
-                    M_new[:S], llr_info, fT, freeze_f, buckets, sl_tabs,
-                    col_tabs, sh_tabs, G, q, msg_copy=True,
-                    interpret=interpret)
-            else:
-                T, fT = var_totals_update(
-                    M_new[:S], llr_info, fT, freeze_f, buckets, sl_tabs,
-                    col_tabs, sh_tabs, G, q, msg_copy=False,
-                    interpret=interpret)
-                Tc = T
-            return (M_new, T, Tc, Tp_new, Tp_new.astype(mdt), done, fT,
-                    fTp, n_iters), None
-
-        if early_exit:
-            def cond(state):
-                kk, carry = state
-                return (kk < K) & ~jnp.all(carry[5])
-
-            def w_body(state):
-                kk, carry = state
-                return kk + 1, step(carry, kk)[0]
-
-            _, (_, _, _, _, _, done, fT, fTp, n_iters) = jax.lax.while_loop(
-                cond, w_body, (jnp.asarray(0), carry0))
-        else:
-            (_, _, _, _, _, done, fT, fTp, n_iters), _ = jax.lax.scan(
-                step, carry0, jnp.arange(K))
-        fT = untile_batch(fT, nb, bt)
-        fTp = untile_batch(fTp, nb, bt)
-        out_info = fT[jnp.asarray(pos_of_g)].reshape(G * Z, B)
-        out_p = fTp.transpose(1, 0, 2).reshape(m, B)
-        out = jnp.concatenate([out_info, out_p])
-        if pad:
-            out, n_iters, done = out[:, :B_in], n_iters[:B_in], done[:B_in]
-        return out, n_iters, ~done
 
     return decode

@@ -1,9 +1,9 @@
 """Performance metrics: BER/SER/SNR, LLRs, MI/GMI/NGMI, EVM, theory curves.
 
-TPU-native counterpart of reference ``optic/comm/metrics.py``. All Monte-Carlo
+Counterpart of reference ``optic/comm/metrics.py``. All Monte-Carlo
 paths are vectorized JAX (one code path, batched over modes); the per-symbol
 Numba prange loops of the reference become broadcast distance tensors and
-matmuls against the bit map (MXU contractions):
+matmuls against the bit map (matrix contractions):
 
 - :func:`calc_llr`  ~ metrics.py:198  (prob @ bitMap matmuls)
 - :func:`calc_mi`   ~ metrics.py:496  (vectorized reduction)
@@ -141,7 +141,7 @@ def calc_llr(rx_symb, noise_var, const_symb, bitmap, px):
 
     ``p(b_k=v) = sum_{m: bitMap[m,k]=v} exp(-|r - s_m|^2/sigma^2) * px[m]``
     computed as two matmuls of the (N, M) likelihood matrix against the bit
-    map — an MXU contraction instead of the reference's per-symbol loop.
+    map — a matrix contraction instead of the reference's per-symbol loop.
     Returns interleaved LLRs of length N*log2(M).
     """
     rx_symb = jnp.asarray(rx_symb).reshape(-1)
@@ -153,8 +153,11 @@ def calc_llr(rx_symb, noise_var, const_symb, bitmap, px):
     logw = -d2 / noise_var + jnp.log(px)[None, :]  # (N, M)
     mx = jnp.max(logw, axis=1, keepdims=True)
     w = jnp.exp(logw - mx)
-    p1 = w @ bitmap  # (N, b)
-    p0 = w @ (1.0 - bitmap)
+    # HIGHEST: a default f32 matmul may run in TF32 on a GPU (~1e-3
+    # relative error in every LLR)
+    hi = jax.lax.Precision.HIGHEST
+    p1 = jnp.matmul(w, bitmap, precision=hi)  # (N, b)
+    p0 = jnp.matmul(w, 1.0 - bitmap, precision=hi)
     llr = jnp.log(p0) - jnp.log(p1)
     return llr.reshape(-1)
 

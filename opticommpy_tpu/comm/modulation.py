@@ -1,14 +1,14 @@
 """Digital modulation: constellations, Gray mapping, (de)mapping, detection.
 
-TPU-native counterpart of reference ``optic/comm/modulation.py``. Constellation
+Counterpart of reference ``optic/comm/modulation.py``. Constellation
 *generation* is host-side NumPy (tiny, offline, produces constant arrays);
 everything per-symbol (minEuclid, demap, detector, soft estimation, MLSE) is
 vectorized JAX:
 
 - :func:`min_euclid` ~ modulation.py:271 — the Numba prange loop becomes one
-  broadcast distance tensor + argmin (VPU/MXU friendly, vmap/shard-able).
+  broadcast distance tensor + argmin (vmap/shard-able).
 - :func:`soft_estimator` ~ modulation.py:522 — the per-symbol M*q probability
-  products become two log-domain matmuls against the bit map (MXU).
+  products become two log-domain matmuls against the bit map.
 - :func:`mlse` ~ modulation.py:581 — Viterbi as a ``lax.scan`` over time with
   all trellis states updated in parallel per step.
 """
@@ -213,18 +213,20 @@ def soft_estimator(llr, bitmap, const_symb):
 
     The reference's per-symbol M*q probability product loops become two
     matmuls in the log domain: ``logP(sym m) = log(Pb1) @ B^T + log(Pb0) @
-    (1-B)^T`` — an MXU contraction over bits, batched over symbols.
+    (1-B)^T`` — a matrix contraction over bits, batched over symbols.
     """
     llr = jnp.clip(jnp.asarray(llr), -300.0, 300.0)
     bitmap = jnp.asarray(bitmap).astype(jnp.float32)  # (M, q)
     const_symb = jnp.asarray(const_symb)
     pb1 = jnp.clip(llr2bit_prob(llr), 1e-30, 1.0)  # (N, q)
     pb0 = jnp.clip(1.0 - pb1, 1e-30, 1.0)
-    log_p = jnp.log(pb1) @ bitmap.T + jnp.log(pb0) @ (1.0 - bitmap.T)  # (N, M)
-    prob = jnp.exp(log_p)
+    # HIGHEST: a default f32 matmul may run in TF32 on a GPU
+    mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    log_p = mm(jnp.log(pb1), bitmap.T) + mm(jnp.log(pb0), 1.0 - bitmap.T)
+    prob = jnp.exp(log_p)  # (N, M)
     abs2 = jnp.abs(const_symb) ** 2
-    soft_mean = prob @ const_symb
-    soft_var = prob @ abs2 - jnp.abs(soft_mean) ** 2
+    soft_mean = mm(prob, const_symb)
+    soft_var = mm(prob, abs2) - jnp.abs(soft_mean) ** 2
     return soft_mean, soft_var
 
 

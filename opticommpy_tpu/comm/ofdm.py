@@ -1,8 +1,8 @@
 """OFDM modulation/demodulation with cyclic prefix and pilot equalization.
 
-TPU-native counterpart of reference ``optic/comm/ofdm.py``. The reference
+Counterpart of reference ``optic/comm/ofdm.py``. The reference
 loops over OFDM frames in Python (ofdm.py:158,255); here all frames are
-processed as one batched (nFrames, Nfft) IFFT/FFT — the natural TPU layout —
+processed as one batched (nFrames, Nfft) IFFT/FFT —
 and the pilot-based channel estimate is computed with a closed-form linear
 interpolation/extrapolation instead of scipy.interp1d.
 """

@@ -1,6 +1,6 @@
 """Bit and symbol sources.
 
-TPU-native counterpart of reference ``optic/comm/sources.py``. Random draws
+Counterpart of reference ``optic/comm/sources.py``. Random draws
 thread explicit ``jax.random`` keys; the PRBS LFSR (a strictly sequential bit
 recurrence, sources.py:75) runs as a ``lax.scan`` carrying the shift-register
 state as an int32 word.

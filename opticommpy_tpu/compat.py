@@ -1,7 +1,7 @@
 """Reference-compatible API surface (OptiCommPy names).
 
 Every public function of the reference ``optic`` package is exposed here under
-its original camelCase name, delegating to the TPU-native implementations, so
+its original camelCase name, delegating to the JAX implementations, so
 a reference user can port scripts with an import change::
 
     from opticommpy_tpu import compat as optic
@@ -19,6 +19,7 @@ import dataclasses
 import jax
 import numpy as np
 
+from opticommpy_tpu.backend import implementation
 from opticommpy_tpu.comm import fec as _fec
 from opticommpy_tpu.comm import metrics as _metrics
 from opticommpy_tpu.comm import modulation as _mod
@@ -347,13 +348,14 @@ def decodeLDPC(llrs, param):
             # the reference decoder always breaks on parity success
             # (fec.py:494-497) — its earlyExit is not configurable, so
             # the compat surface defaults it ON for the standard
-            # lifted/QC graphs that implement it (round 5) — on
-            # accelerators only: the XLA:CPU while_loop variant compiles
-            # for minutes, a silent regression for CPU compat users.
-            # Custom-H graphs default off (they would warn + run fixed)
+            # lifted/QC graphs that implement it — where compiled device
+            # loops run (opticommpy_tpu.backend): the XLA:CPU while_loop
+            # variant compiles for minutes, a silent regression for CPU
+            # compat users. Custom-H graphs default off (they would warn
+            # and run fixed).
             earlyExit=bool(getattr(
                 param, "earlyExit",
-                graph is not None and jax.default_backend() != "cpu")),
+                graph is not None and implementation() == "kernel")),
         ),
     )
 
@@ -508,10 +510,10 @@ def mimoAdaptEqualizer(sigIn, param=None, symbRef=None):
         constType=getattr(param, "constType", "qam"),
         M=getattr(param, "M", 4),
         shapingFactor=getattr(param, "shapingFactor", 0.0),
-        # TPU extension (not a reference param): param.backend = 'pallas'
-        # runs each supported training stage on the VMEM-resident kernel
+        # extensions (not reference params): param.blockUpdate, and
+        # param.backend = 'auto' | 'scan' | 'pallas' (the equalizer kernel)
         blockUpdate=getattr(param, "blockUpdate", 1),
-        backend=getattr(param, "backend", "scan"),
+        backend=getattr(param, "backend", "auto"),
     )
     return _eq.mimo_adapt_equalizer(
         sigIn, cfg, symb_ref=symbRef,
@@ -647,7 +649,7 @@ getSpectrum = _amp.get_spectrum
 
 # --- reference-internal kernels exposed for line-by-line API parity --------
 # The reference publishes its Numba kernels and solver internals as part of
-# its API (users call them directly in notebooks). The TPU-fast paths live in
+# its API (users call them directly in notebooks). The device paths live in
 # opticommpy_tpu.dsp / .comm / .models; the shims below are host-side NumPy
 # forms with the reference's exact signatures, and double as independent
 # oracles for the jitted implementations in tests/.
@@ -661,10 +663,10 @@ def dotNumba(a, b):
 def checkGPU():
     """Accelerator probe (reference dsp/coreGPU.py:11).
 
-    The rebuild has a single jitted code path, so nothing dispatches on this;
-    it reports whether JAX's default backend is an accelerator.
+    True where the platform table (:mod:`opticommpy_tpu.backend`) runs the
+    compiled kernels, i.e. on a CUDA GPU.
     """
-    return jax.default_backend() != "cpu"
+    return implementation() == "kernel"
 
 
 def minR(R, x):
@@ -688,8 +690,9 @@ def randomCmap(nColors=100, low=0.1, high=0.99, seed=None):
 def bpsGPU(Ei, N, constSymb, B):
     """GPU blind phase search (reference carrierRecoveryGPU.py:17).
 
-    The TPU build has one vectorized kernel for CPU/TPU alike (dsp.bps); this
-    alias keeps reference call sites working.
+    This build has one vectorized XLA formulation (dsp.bps, modelled on that
+    kernel) for every platform; this alias keeps reference call sites
+    working.
     """
     return _cpr.bps(Ei, N, constSymb, B)
 
@@ -978,8 +981,8 @@ def coreAdaptEq(sigIn, symbRef, SpS, H, H_, L, mu, lambdaRLS, nTaps,
     """Adaptive-equalizer core loop (reference equalization.py:354).
 
     Host-side NumPy form with the reference's semantics (strictly sequential
-    over symbols); the TPU path is dsp.mimo_adapt_equalizer (lax.scan) and
-    kernels.mimo_eq_pallas. Returns (sigOut, H, H_, errSq, Hiter).
+    over symbols); the device paths are dsp.mimo_adapt_equalizer (lax.scan)
+    and kernels.mimo_eq_pallas. Returns (sigOut, H, H_, errSq, Hiter).
     """
     sigIn = np.asarray(sigIn).astype(prec)
     symbRef = np.asarray(symbRef).astype(prec)

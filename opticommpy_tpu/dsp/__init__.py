@@ -1,6 +1,6 @@
 """Receiver DSP chain: equalization, carrier/clock recovery, synchronization.
 
-TPU-native counterpart of the reference ``optic/dsp`` package (minus core,
+Counterpart of the reference ``optic/dsp`` package (minus core,
 which lives in opticommpy_tpu.ops).
 """
 
@@ -41,13 +41,8 @@ from opticommpy_tpu.dsp.synchronization import (  # noqa: F401
     sync_data_sequences,
 )
 
-# Pallas TPU kernels for the serial recurrences (opt-in fast paths)
-from opticommpy_tpu.kernels.bps_pallas import bps_pallas  # noqa: F401
-from opticommpy_tpu.kernels.dfe_pallas import dfe_pallas, ffe_pallas  # noqa: F401
-from opticommpy_tpu.kernels.ddpll_pallas import ddpll_pallas  # noqa: F401
-from opticommpy_tpu.kernels.gardner_pallas import gardner_pallas  # noqa: F401
+# Pallas kernel for the adaptive-equalizer recurrence (Triton route)
 from opticommpy_tpu.kernels.mimo_pallas import (  # noqa: F401
     mimo_eq_pallas,
     mimo_eq_pallas_batch,
-    mimo_lms_pallas,
 )

@@ -1,13 +1,12 @@
 """Carrier phase and frequency recovery: BPS, DD-PLL, Viterbi&Viterbi, 4th-power FOE.
 
-TPU-native counterpart of reference ``optic/dsp/carrierRecovery.py`` (and its
+Counterpart of reference ``optic/dsp/carrierRecovery.py`` (and its
 GPU twin ``carrierRecoveryGPU.py``):
 
 - :func:`bps` follows the *vectorized GPU formulation*
   (carrierRecoveryGPU.py:54-66), not the per-symbol CPU loop: the full
   (N, B, M) distance tensor reduces over the constellation, then a windowed
-  sum over time via cumulative sums — all batched over modes, VPU/MXU
-  friendly, no sequential dependence.
+  sum over time — all batched over modes, no sequential dependence.
 - :func:`ddpll` is the true per-symbol PLL recurrence as a ``lax.scan``
   (carrierRecovery.py:226), vmapped over modes.
 - :func:`viterbi` / :func:`fourth_power_foe` are closed-form vector ops.
@@ -231,21 +230,10 @@ def cpr(sig, config: CPRConfig = CPRConfig(), symb_tx=None, pilot_ind=None,
 
     if config.alg == "bps":
         phase_est = bps(sig, config.N // 2, const, config.B)
-    elif config.alg == "bps-pallas":
-        from opticommpy_tpu.kernels.bps_pallas import bps_pallas
-
-        phase_est = bps_pallas(sig, config.N // 2, const, config.B)
     elif config.alg == "ddpll":
         phase_est = ddpll(
             sig, config.Ts, config.Kv, config.tau1, config.tau2, const,
             symb_tx, pilot_ind,
-        )
-    elif config.alg == "ddpll-pallas":
-        from opticommpy_tpu.kernels.ddpll_pallas import ddpll_pallas
-
-        phase_est = ddpll_pallas(
-            sig, config.Ts, config.Kv, config.tau1, config.tau2,
-            np.asarray(const), symb_tx, pilot_ind,
         )
     elif config.alg == "viterbi":
         if config.constType == "psk":

@@ -1,6 +1,6 @@
 """Clock and timing recovery: Gardner TED + Farrow interpolator + PI loop/NCO.
 
-TPU-native counterpart of reference ``optic/dsp/clockRecovery.py``. The NCO
+Counterpart of reference ``optic/dsp/clockRecovery.py``. The NCO
 loop is a true sequential recurrence with data-dependent pointer moves
 (sample skip/stuff, clockRecovery.py:160-171); it runs as a ``lax.while_loop``
 carrying the output buffer and loop-filter state, with masked scatter writes.
@@ -111,17 +111,12 @@ def _gardner_one_mode(col, cfg: ClockRecoveryConfig, n_out):
 
 
 def gardner_clock_recovery(sig, config: ClockRecoveryConfig = ClockRecoveryConfig(),
-                           return_timing=False, backend="scan",
-                           static_out=False):
+                           return_timing=False, static_out=False):
     """Gardner clock recovery with PI loop filter and NCO (clockRecovery.py:85).
 
     Input is expected at 2 samples/symbol; output is retimed at 2
     samples/symbol. Returns the recovered signal (and the NCO timing values if
     ``return_timing``).
-
-    ``backend='pallas'`` runs the same recurrence in a fused TPU kernel
-    (kernels/gardner_pallas.py, ~12x the while_loop on v5e; identical output
-    to f32 rounding; interpret mode is selected automatically on CPU).
 
     ``static_out=True`` keeps the output length STATIC at
     ``n_out = (1 - maxPPM/1e6) * n_in`` instead of truncating to the
@@ -132,12 +127,6 @@ def gardner_clock_recovery(sig, config: ClockRecoveryConfig = ClockRecoveryConfi
     fixed-length output is fully valid; only if the input runs dry early
     is the tail zero-filled.
     """
-    if backend == "pallas":
-        from opticommpy_tpu.kernels.gardner_pallas import gardner_pallas
-
-        return gardner_pallas(sig, config, return_timing=return_timing,
-                              interpret=jax.default_backend() == "cpu",
-                              static_out=static_out)
     sig = jnp.asarray(sig)
     squeeze = sig.ndim == 1
     if squeeze:
@@ -167,7 +156,7 @@ def gardner_clock_recovery(sig, config: ClockRecoveryConfig = ClockRecoveryConfi
 class FFWClockRecoveryConfig:
     """Feedforward (block-parallel) clock recovery parameters.
 
-    TPU-first alternative to the Gardner PI/NCO loop: the sequential
+    Block-parallel alternative to the Gardner PI/NCO loop: the sequential
     recurrence is replaced by a per-block spectral-line timing estimator
     plus a fully parallel cubic resampler, so the whole stage is dense
     XLA ops (batched FFTs, reductions, slices) with no per-sample
@@ -226,8 +215,8 @@ def _resample_cubic_blocks(x, off, block=2048):
     keeps f32 timing resolution independent of the signal length (at
     N=2^20 an absolute f32 position quantizes to 1/16 sample; the offset
     stays exact to ~1e-5). Blocks of ``block`` outputs share one
-    dynamically-offset CONTIGUOUS input window (the fast gather shape on
-    this backend — see CLAUDE.md gather rule); within a block the 4-tap
+    dynamically-offset CONTIGUOUS input window (long contiguous rows, not
+    per-sample gathers); within a block the 4-tap
     cubic is a sum over ~12 statically shifted slices weighted by
     per-sample coefficient planes, so there are no per-sample gathers.
     """

@@ -1,6 +1,6 @@
 """Static and adaptive equalization: EDC, NxN MIMO adaptive EQ, DBP, DFE/FFE/Volterra.
 
-TPU-native counterpart of reference ``optic/dsp/equalization.py``:
+Counterpart of reference ``optic/dsp/equalization.py``:
 
 - :func:`edc` ~ equalization.py:36 — frequency-domain CD compensation over the
   batched overlap-save primitive (all modes in one call; the time axis can be
@@ -93,10 +93,9 @@ def edc(sig, config: EDCConfig):
         # the reference uses next-pow2(K) (equalization.py:103), which makes
         # the overlap-save valid-block length K-1 times smaller than the FFT
         # — pathological for long CD filters. 8x the filter length keeps
-        # ~7/8 of every FFT productive; the 16384 floor keeps blocks
-        # TPU-sized (measured on v5e: 2048-point blocks run ~3.5x slower
-        # than 16384 at 2^18 samples — per-block overhead dominates small
-        # FFTs). Capped at one single-signal block.
+        # ~7/8 of every FFT productive; the 16384 floor keeps per-block
+        # overhead small next to the FFT work. Capped at one single-signal
+        # block.
         nfft = min(
             max(8 * 2 ** int(np.ceil(np.log2(n_coeffs))), 16384),
             2 ** int(np.ceil(np.log2(sig.shape[0] + n_coeffs))),
@@ -104,11 +103,10 @@ def edc(sig, config: EDCConfig):
     w = 2 * np.pi * config.Fs * np.fft.fftfreq(n_coeffs)
     H = jnp.asarray(np.exp(-1j * (beta2 / 2) * (w**2) * config.L).astype(np.complex64))
     if config.Nfft is None and sig.shape[0] + n_coeffs <= 2**22:
-        # one transposed FFT with time on the minor (lane) axis: measured
-        # ~10x faster than blocked overlap-save on v5e at 2^18 samples (an
-        # FFT along a non-minor axis with a 2-wide minor dim pays layout
-        # transposes; block gathers add HBM passes). Falls back to
-        # overlap-save for very long signals (memory) or an explicit Nfft.
+        # one transposed FFT with time on the minor axis (no block
+        # gathers, no FFT along a non-minor axis with a 2-wide minor dim).
+        # Falls back to overlap-save for very long signals (memory) or an
+        # explicit Nfft.
         squeeze = sig.ndim == 1
         x = sig[:, None] if squeeze else sig
         n = x.shape[0]
@@ -150,25 +148,24 @@ class MIMOEqualizerConfig:
     constType: str = "qam"
     M: int = 4
     shapingFactor: float = 0.0
-    # blockUpdate > 1 enables block-parallel training (TPU throughput mode):
-    # taps are held fixed within each K-symbol block, the K filter outputs
-    # and error gradients are computed as one batched contraction, and the
-    # accumulated update is applied once per block — a K-fold shorter scan
-    # with MXU-sized per-step work (mini-batch/delayed-gradient LMS; reduce
-    # mu accordingly). K=1 reproduces the reference's per-symbol recursion.
-    # Not supported for the 'rls'/'dd-rls' algorithms.
+    # blockUpdate > 1 enables block-parallel training: taps are held fixed
+    # within each K-symbol block, the K filter outputs and error gradients
+    # are computed as one batched contraction, and the accumulated update
+    # is applied once per block — a K-fold shorter scan (mini-batch /
+    # delayed-gradient LMS; reduce mu accordingly). K=1 reproduces the
+    # reference's per-symbol recursion. Not supported for 'rls'/'dd-rls'.
     blockUpdate: int = 1
-    # backend='pallas' runs each training stage's per-symbol recurrence as
-    # a VMEM-resident Pallas kernel (kernels/mimo_pallas.py for the
-    # gradient rules, kernels/rls_pallas.py for rls/dd-rls) instead of a
-    # lax.scan — exact per-symbol semantics, several-x faster on TPU.
-    # Supported per stage for alg in {'nlms','dd-lms','cma','rde',
-    # 'da-rde'} with blockUpdate == 1, and for {'rls','dd-rls'} (dd-rls
-    # needs a square-QAM constellation), both with runWL == False and
-    # storeCoeff == False; unsupported stages fall back to the scan (H and
-    # Sd chain through either way). 'scan' (default) = the
-    # reference-shaped lax.scan path.
-    backend: str = "scan"
+    # 'pallas' runs each training stage's per-symbol recurrence as one
+    # Pallas kernel launch (kernels/mimo_pallas.py, Triton route) instead
+    # of a lax.scan, with the same per-symbol semantics, for alg in
+    # {'nlms','dd-lms','cma','rde','da-rde'} with blockUpdate == 1,
+    # runWL == False and storeCoeff == False; other stages run the scan
+    # (H chains through either way). 'scan' is the reference-shaped
+    # lax.scan path. 'auto' takes the kernel on a GPU and the scan on the
+    # CPU (opticommpy_tpu.backend).
+    backend: str = "auto"
+    # run the kernel in the Pallas interpreter (CPU tests only)
+    interpret: bool = False
 
 
 def _decide(z, const):
@@ -325,12 +322,11 @@ def _adapt_eq_stage_blocked(
     Each scan step filters K symbols with the current taps (one batched
     einsum), computes the per-symbol errors of the selected algorithm, and
     applies the accumulated gradient once — mini-batch LMS. K-fold fewer
-    scan iterations with MXU-shaped work per iteration.
+    scan iterations with matrix-shaped work per iteration.
     """
     n_blocks = length // k_block
     # build all windows once: (length, taps, modes) — strided slices, not
-    # a gather (kernels/_util.sliding_windows: identical array, ~6.5 ms
-    # cheaper at serving sizes on the TPU backend)
+    # a gather (kernels/_util.sliding_windows: identical array)
     from opticommpy_tpu.kernels._util import sliding_windows
 
     wins_all = sliding_windows(sig_pad, length, sps, n_taps)
@@ -391,251 +387,77 @@ def _adapt_eq_stage_blocked(
     return sig_out, H, H_, err_sq
 
 
-_PALLAS_STAGE_ALGS = ("nlms", "dd-lms", "cma", "rde", "da-rde")
-
-# training-stage alg -> mimo kernel rule ('dd-lms' is the kernel's 'lms'
-# with n_train=0, i.e. decision-directed from the first symbol)
-_PALLAS_KERNEL_ALG = {"nlms": "nlms", "dd-lms": "lms", "cma": "cma",
-                      "rde": "rde", "da-rde": "da-rde"}
+# training-stage alg -> kernel rule ('dd-lms' is the kernel's 'lms' with
+# n_train=0, i.e. decision-directed from the first symbol)
+_KERNEL_STAGE_ALG = {"nlms": "nlms", "dd-lms": "lms", "cma": "cma",
+                     "rde": "rde", "da-rde": "da-rde"}
 
 
-def _pallas_stage_aux(alg, const_np):
-    """The kernel's rule-specific aux vector (CMA radius / RDE radii)."""
-    if alg == "cma":
-        return np.array([np.mean(np.abs(const_np) ** 4)
-                         / np.mean(np.abs(const_np) ** 2)], np.float32)
-    if alg == "rde":
-        return np.unique(np.round(np.abs(const_np), 6)).astype(np.float32)
-    return np.zeros(1, np.float32)
+def _use_kernel(config, alg):
+    """Whether a training stage runs on the Pallas kernel.
+
+    ``backend='auto'`` takes the kernel where the platform table
+    (:mod:`opticommpy_tpu.backend`) says compiled kernels run; stages the
+    kernel does not implement (rls/dd-rls/static, runWL, storeCoeff,
+    blockUpdate > 1) run as the scan whatever the backend.
+    """
+    if config.backend not in ("auto", "scan", "pallas"):
+        raise ValueError(f"unknown MIMO equalizer backend {config.backend!r}")
+    backend = config.backend
+    if backend == "auto":
+        from opticommpy_tpu.backend import implementation
+
+        backend = "pallas" if implementation() == "kernel" else "scan"
+    return (backend == "pallas" and alg in _KERNEL_STAGE_ALG
+            and not config.runWL and not config.storeCoeff
+            and config.blockUpdate == 1)
 
 
-def _pallas_stage_err_sq(alg, y, ref, const_np, aux):
+def _kernel_stage_err_sq(alg, y, ref, const_np):
     """Elementwise err_sq recomputed from the kernel outputs — the same
     formulas as the scan rules (:func:`_make_update`); broadcast-safe for
     single (length, modes) and batched (B, length, modes) outputs."""
     const = jnp.asarray(const_np)
     bcast = (1,) * y.ndim
-    if alg in ("nlms", "rls"):
+    if alg == "nlms":
         return jnp.abs(ref - y) ** 2
-    if alg in ("dd-lms", "dd-rls"):
+    if alg == "dd-lms":
         dec = const[jnp.argmin(
             jnp.abs(y[..., None] - const.reshape(bcast + (-1,))) ** 2,
             axis=-1)]
         return jnp.abs(dec - y) ** 2
     if alg == "cma":
-        return (float(aux[0]) - jnp.abs(y) ** 2) ** 2
+        r_cma = np.mean(np.abs(const_np) ** 4) / np.mean(np.abs(const_np) ** 2)
+        return (np.float32(r_cma) - jnp.abs(y) ** 2) ** 2
     if alg == "rde":
-        radii = jnp.asarray(aux)
+        radii = jnp.asarray(np.unique(np.round(np.abs(const_np), 6)),
+                            jnp.float32)
         r = jnp.abs(y)
         r_dec = radii[jnp.argmin(
             jnp.abs(r[..., None] - radii.reshape(bcast + (-1,))), axis=-1)]
         return (r_dec ** 2 - r ** 2) ** 2
-    if alg == "da-rde":
-        return (jnp.abs(ref) ** 2 - jnp.abs(y) ** 2) ** 2
-    raise ValueError(f"unsupported pallas stage alg {alg!r}")
+    return (jnp.abs(ref) ** 2 - jnp.abs(y) ** 2) ** 2  # da-rde
 
 
-def _adapt_eq_stage_pallas_rls(sig_pad, symb_ref, H, Sd, const_np, lam,
-                               alg, sps, n_taps, n_start, length):
-    """One RLS / DD-RLS training stage on the VMEM-resident Pallas kernel.
-
-    Same contract as :func:`_adapt_eq_stage_pallas` (windows gathered from
-    the globally padded signal at the scan stages' alignment) plus the
-    inverse-correlation state ``Sd`` carried in/out, so RLS stages chain
-    exactly with scan stages. Returns (sig_out, H_new, Sd_new, err_sq).
-    """
-    import jax
-
-    from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
-    from opticommpy_tpu.kernels.rls_pallas import _rls_run_windows
-
-    from opticommpy_tpu.kernels._util import sliding_windows
-
-    n_modes = sig_pad.shape[1]
-    block = 256
-    n_pad_sym = -(-length // block) * block
-    win = sliding_windows(  # (length, taps, modes); n_start is static
-        jax.lax.slice_in_dim(sig_pad, n_start * sps, sig_pad.shape[0]),
-        length, sps, n_taps)
-    w = jnp.pad(win.transpose(0, 2, 1),  # (n_pad_sym, modes, taps)
-                ((0, n_pad_sym - length), (0, 0), (0, 0)))
-    ref = symb_ref[n_start:n_start + length]
-    rp = jnp.pad(ref, ((0, n_pad_sym - length), (0, 0)))[:, :, None]
-
-    qam_grid = _square_qam_levels(const_np.real, const_np.imag)
-    # with B=1 the kernel's fused (modes_out, B*modes, T) / (B*modes, T, T)
-    # layouts are exactly the scan path's H (o, i, t) and Sd (i, T, T)
-    out_re, out_im, hr, hi, sdr, sdi = _rls_run_windows(
-        jnp.real(w).astype(jnp.float32), jnp.imag(w).astype(jnp.float32),
-        jnp.real(rp).astype(jnp.float32), jnp.imag(rp).astype(jnp.float32),
-        jnp.asarray(const_np.real), jnp.asarray(const_np.imag),
-        jnp.real(H).astype(jnp.float32), jnp.imag(H).astype(jnp.float32),
-        jnp.real(Sd).astype(jnp.float32), jnp.imag(Sd).astype(jnp.float32),
-        n_modes, 1, length, float(lam), block, alg, qam_grid,
-        jax.default_backend() == "cpu")
-    y = (out_re[:length, :, 0] + 1j * out_im[:length, :, 0]).astype(
-        jnp.complex64)
-    H_new = (hr + 1j * hi).astype(jnp.complex64)
-    Sd_new = (sdr + 1j * sdi).astype(jnp.complex64)
-
-    return (y, H_new, Sd_new,
-            _pallas_stage_err_sq(alg, y, ref, const_np, None))
-
-
-def _adapt_eq_stage_pallas(sig_pad, symb_ref, H, const_np, mu, alg, sps,
-                           n_taps, n_start, length):
-    """One training stage on the VMEM-resident Pallas kernel.
+def _adapt_eq_stage_kernel(sig_pad_b, symb_ref_b, H_b, const_np, mu, alg,
+                           sps, n_taps, n_start, length, interpret):
+    """One training stage for B signals on the Pallas kernel.
 
     Per-symbol semantics identical to :func:`_adapt_eq_stage` for the
-    supported rules (equivalence pinned in tests/test_mimo_pallas.py);
-    symbol windows are gathered from the SAME globally padded signal at
-    the scan stages' alignment, so H chains between mixed scan/Pallas
-    stages exactly. Returns (sig_out, H_new, err_sq) with err_sq
-    recomputed from the outputs (elementwise, same formulas as the scan
-    rules).
+    supported rules (pinned in tests/test_mimo_pallas.py). The kernel reads
+    symbol windows from the SAME globally padded signal at the scan
+    stages' alignment, so H chains between mixed scan/kernel stages.
+    Returns (y (B, length, modes), H (B, o, i, t), err_sq (B, length,
+    modes)).
     """
-    import jax
+    from opticommpy_tpu.kernels.mimo_pallas import mimo_eq_stage
 
-    from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
-    from opticommpy_tpu.kernels.mimo_pallas import _mimo_eq_run_windows
-
-    from opticommpy_tpu.kernels._util import sliding_windows
-
-    n_modes = sig_pad.shape[1]
-    width = n_modes * n_taps
-    win = sliding_windows(  # (length, taps, modes); n_start is static
-        jax.lax.slice_in_dim(sig_pad, n_start * sps, sig_pad.shape[0]),
-        length, sps, n_taps)
-    w = win.reshape(length, width)
-    ref = symb_ref[n_start:n_start + length]
-
-    kernel_alg = _PALLAS_KERNEL_ALG[alg]
     n_train = length if alg == "nlms" else 0
-    aux = _pallas_stage_aux(alg, const_np)
-    qam_grid = _square_qam_levels(const_np.real, const_np.imag)
-
-    h_flat = jnp.transpose(H, (0, 2, 1)).reshape(n_modes, width)
-    out_re, out_im, h_re, h_im = _mimo_eq_run_windows(
-        jnp.real(w).astype(jnp.float32), jnp.imag(w).astype(jnp.float32),
-        jnp.real(ref).astype(jnp.float32), jnp.imag(ref).astype(jnp.float32),
-        jnp.asarray(const_np.real), jnp.asarray(const_np.imag),
-        jnp.asarray(aux), jnp.real(h_flat), jnp.imag(h_flat),
-        n_modes, float(mu), int(n_train), 1024, kernel_alg, qam_grid,
-        jax.default_backend() == "cpu")
-    y = (out_re + 1j * out_im).astype(jnp.complex64)
-    H_new = (h_re + 1j * h_im).reshape(n_modes, n_taps, n_modes)
-    H_new = jnp.transpose(H_new, (0, 2, 1)).astype(jnp.complex64)
-
-    return y, H_new, _pallas_stage_err_sq(alg, y, ref, const_np, aux)
-
-
-def _adapt_eq_stage_pallas_batch(sig_pad_b, symb_ref_b, H_b, const_np, mu,
-                                 alg, sps, n_taps, n_start, length):
-    """One gradient-rule training stage for B signals on the batched kernel.
-
-    Batched counterpart of :func:`_adapt_eq_stage_pallas`: all B signals'
-    per-symbol recurrences ride the sublane axis of ONE kernel pass
-    (kernels/mimo_pallas.py `_kernel_batch`), per-signal semantics
-    identical to the single path. Returns (y (B, length, modes),
-    H (B, o, i, t), err_sq (B, length, modes)).
-    """
-    import jax
-
-    from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
-    from opticommpy_tpu.kernels.mimo_pallas import _mimo_eq_run_batch_windows
-
-    from opticommpy_tpu.kernels._util import auto_block
-
-    n_batch, _, n_modes = sig_pad_b.shape
-    width = n_modes * n_taps
-    block = auto_block(n_batch, width)  # scoped-VMEM cap (lane padding)
-    n_pad_sym = -(-length // block) * block
-    idx = ((n_start + np.arange(length))[:, None] * sps
-           + np.arange(n_taps)[None, :])
-    win = sig_pad_b[:, jnp.asarray(idx)]  # (B, length, taps, modes)
-    w = win.reshape(n_batch, length, width).transpose(1, 0, 2)
-    w = jnp.pad(w, ((0, n_pad_sym - length), (0, 0), (0, 0)))
-    ref = symb_ref_b[:, n_start:n_start + length]  # (B, length, modes)
-    rp = jnp.pad(ref, ((0, 0), (0, n_pad_sym - length), (0, 0))
-                 ).transpose(1, 2, 0)
-
-    kernel_alg = _PALLAS_KERNEL_ALG[alg]
-    n_train = length if alg == "nlms" else 0
-    aux = _pallas_stage_aux(alg, const_np)
-    qam_grid = _square_qam_levels(const_np.real, const_np.imag)
-
-    # H (B, o, i, t) -> fused (o, B, width) with tap-major/mode-minor lanes
-    hf = jnp.transpose(H_b, (0, 1, 3, 2)).reshape(n_batch, n_modes, width)
-    hf = jnp.transpose(hf, (1, 0, 2))
-    out_re, out_im, h_re, h_im = _mimo_eq_run_batch_windows(
-        jnp.real(w).astype(jnp.float32), jnp.imag(w).astype(jnp.float32),
-        jnp.real(rp).astype(jnp.float32), jnp.imag(rp).astype(jnp.float32),
-        jnp.asarray(const_np.real), jnp.asarray(const_np.imag),
-        jnp.asarray(aux), jnp.real(hf), jnp.imag(hf),
-        n_modes, float(mu), int(n_train), block, kernel_alg, qam_grid,
-        jax.default_backend() == "cpu")
-    y = (out_re[:length] + 1j * out_im[:length]).transpose(2, 0, 1).astype(
-        jnp.complex64)  # (B, length, modes)
-    h = (h_re + 1j * h_im).transpose(1, 0, 2)  # (B, o, width)
-    H_new = jnp.transpose(
-        h.reshape(n_batch, n_modes, n_taps, n_modes),
-        (0, 1, 3, 2)).astype(jnp.complex64)
-
-    return y, H_new, _pallas_stage_err_sq(alg, y, ref, const_np, aux)
-
-
-def _adapt_eq_stage_pallas_rls_batch(sig_pad_b, symb_ref_b, H_b, Sd_b,
-                                     const_np, lam, alg, sps, n_taps,
-                                     n_start, length):
-    """One RLS / DD-RLS training stage for B signals on the batched kernel.
-
-    Batched counterpart of :func:`_adapt_eq_stage_pallas_rls`; taps AND
-    the per-mode inverse-correlation state chain per signal. Returns
-    (y (B, length, modes), H (B, o, i, t), Sd (B, i, T, T),
-    err_sq (B, length, modes)).
-    """
-    import jax
-
-    from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
-    from opticommpy_tpu.kernels.rls_pallas import _rls_run_windows
-
-    from opticommpy_tpu.kernels._util import auto_block
-
-    n_batch, _, n_modes = sig_pad_b.shape
-    block = auto_block(n_batch * n_modes, n_taps)  # scoped-VMEM cap
-    n_pad_sym = -(-length // block) * block
-    idx = ((n_start + np.arange(length))[:, None] * sps
-           + np.arange(n_taps)[None, :])
-    win = sig_pad_b[:, jnp.asarray(idx)]  # (B, length, taps, modes)
-    w = win.transpose(1, 0, 3, 2).reshape(length, n_batch * n_modes, n_taps)
-    w = jnp.pad(w, ((0, n_pad_sym - length), (0, 0), (0, 0)))
-    ref = symb_ref_b[:, n_start:n_start + length]  # (B, length, modes)
-    rp = jnp.pad(ref, ((0, 0), (0, n_pad_sym - length), (0, 0))
-                 ).transpose(1, 2, 0)
-
-    qam_grid = _square_qam_levels(const_np.real, const_np.imag)
-    hf = jnp.transpose(H_b, (1, 0, 2, 3)).reshape(
-        n_modes, n_batch * n_modes, n_taps)
-    sdf = Sd_b.reshape(n_batch * n_modes, n_taps, n_taps)
-    out_re, out_im, hr, hi, sdr, sdi = _rls_run_windows(
-        jnp.real(w).astype(jnp.float32), jnp.imag(w).astype(jnp.float32),
-        jnp.real(rp).astype(jnp.float32), jnp.imag(rp).astype(jnp.float32),
-        jnp.asarray(const_np.real), jnp.asarray(const_np.imag),
-        jnp.real(hf).astype(jnp.float32), jnp.imag(hf).astype(jnp.float32),
-        jnp.real(sdf).astype(jnp.float32),
-        jnp.imag(sdf).astype(jnp.float32),
-        n_modes, n_batch, length, float(lam), block, alg, qam_grid,
-        jax.default_backend() == "cpu")
-    y = (out_re[:length] + 1j * out_im[:length]).transpose(2, 0, 1).astype(
-        jnp.complex64)
-    H_new = jnp.transpose(
-        (hr + 1j * hi).reshape(n_modes, n_batch, n_modes, n_taps),
-        (1, 0, 2, 3)).astype(jnp.complex64)
-    Sd_new = (sdr + 1j * sdi).reshape(
-        n_batch, n_modes, n_taps, n_taps).astype(jnp.complex64)
-
-    return (y, H_new, Sd_new,
-            _pallas_stage_err_sq(alg, y, ref, const_np, None))
+    y, H_new = mimo_eq_stage(sig_pad_b, symb_ref_b, H_b, const_np, mu,
+                             _KERNEL_STAGE_ALG[alg], sps, n_taps, n_start,
+                             length, n_train, interpret)
+    ref = symb_ref_b[:, n_start:n_start + length]
+    return y, H_new, _kernel_stage_err_sq(alg, y, ref, const_np)
 
 
 def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
@@ -647,20 +469,13 @@ def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
     trains each channel's ``mimoAdaptEqualizer`` in a Python loop,
     equalization.py:125): ``sig`` is ``(B, N, modes)``, ``symb_ref``
     ``(B, nSym, modes)``; every signal runs the same per-stage schedule
-    independently, and each supported stage executes all B recurrences on
-    the sublane axis of ONE batched Pallas kernel pass
-    (``backend='pallas'``; unsupported stages — runWL, blockUpdate>1,
-    non-square-QAM dd-rls — run as a vmapped scan, with taps/state
-    chaining through either way). ``backend='scan'`` runs the whole
-    schedule as vmapped scans (the reference-shaped path).
-    ``storeCoeff`` is rejected (no per-symbol coefficient-history return
-    in the batch API).
+    independently. On the kernel backend each supported stage runs all B
+    recurrences in ONE kernel launch (one program per signal and output
+    mode); other stages run as a vmapped scan, with taps/state chaining
+    through either way. ``storeCoeff`` is rejected (no per-symbol
+    coefficient-history return in the batch API).
 
-    Per-signal outputs are bit-exact vs :func:`mimo_adapt_equalizer` for
-    gradient-rule stages at any mode count and for rls/dd-rls at 2 modes;
-    rls stages at n_modes > 2 match to f32 accumulation-order tolerance
-    (~1e-5: the RLS kernel's mode-mixing selector matmuls reduce over the
-    fused batch*mode sublane axis, so the sum order depends on B).
+    Per-signal outputs are bit-exact vs :func:`mimo_adapt_equalizer`.
 
     Returns the equalized symbols ``(B, nSym_out, modes)``, or
     ``(sigOut, H (B,o,i,t), errSq (B, modes, nSym_out))`` when
@@ -720,21 +535,13 @@ def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
         np.mean(np.abs(const_np) ** 4) / np.mean(np.abs(const_np) ** 2)))
     r_rde = jnp.asarray(np.unique(np.abs(const_np)).astype(np.float32))
 
-    from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
-
     outs, errs = [], []
     n_start = 0
     for stage, alg in enumerate(algs):
         length = int(stage_lengths[stage])
         n_iter = config.numIter if stage == 0 else 1
         k_block = config.blockUpdate
-        gates_ok = (config.backend == "pallas" and not config.runWL
-                    and not config.storeCoeff)
-        use_pallas = gates_ok and alg in _PALLAS_STAGE_ALGS and k_block == 1
-        use_pallas_rls = (
-            gates_ok and alg in ("rls", "dd-rls")
-            and (alg == "rls" or _square_qam_levels(
-                const_np.real, const_np.imag) is not None))
+        use_kernel = _use_kernel(config, alg)
         stage_slice = sig_pad[
             :, n_start * sps : (n_start + length - 1) * sps + n_taps]
         ref_slice = symb_ref[:, n_start : n_start + length]
@@ -745,15 +552,10 @@ def mimo_adapt_equalizer_batch(sig, config: MIMOEqualizerConfig = None,
             and length >= k_block
         )
         for _ in range(n_iter):
-            if use_pallas:
-                sig_out, H, err_sq = _adapt_eq_stage_pallas_batch(
+            if use_kernel:
+                sig_out, H, err_sq = _adapt_eq_stage_kernel(
                     sig_pad, symb_ref, H, const_np, float(mus[stage]),
-                    alg, sps, n_taps, n_start, length)
-            elif use_pallas_rls:
-                sig_out, H, Sd, err_sq = _adapt_eq_stage_pallas_rls_batch(
-                    sig_pad, symb_ref, H, Sd, const_np,
-                    float(config.lambdaRLS), alg, sps, n_taps, n_start,
-                    length)
+                    alg, sps, n_taps, n_start, length, config.interpret)
             elif use_blocked:
                 n_main = (length // k_block) * k_block
 
@@ -812,11 +614,10 @@ def mimo_adapt_equalizer(sig, config: MIMOEqualizerConfig = None, symb_ref=None,
     Returns the equalized symbols, or (sigOut, H, H_, errSq, Hiter) when
     ``return_results`` is True.
 
-    Throughput notes (TPU): the per-symbol scan is latency-bound; use
-    ``blockUpdate`` for mini-batch updates (5.8x at K=128), or
-    :func:`opticommpy_tpu.kernels.mimo_pallas.mimo_lms_pallas` for the exact
-    per-symbol LMS recurrence as a Pallas kernel (3.7x), or
-    :func:`mimo_apply` once taps have converged.
+    Throughput notes: the per-symbol scan is latency-bound; the kernel
+    backend (``backend='pallas'``, the GPU default) runs each stage's exact
+    per-symbol recurrence in one launch, ``blockUpdate`` trades it for
+    mini-batch updates, and :func:`mimo_apply` serves converged taps.
     """
     if config is None:
         config = MIMOEqualizerConfig()
@@ -884,23 +685,7 @@ def mimo_adapt_equalizer(sig, config: MIMOEqualizerConfig = None, symb_ref=None,
         ref_slice = symb_ref[n_start : n_start + length]
         n_iter = config.numIter if stage == 0 else 1
         k_block = config.blockUpdate
-        use_pallas = (
-            config.backend == "pallas"
-            and alg in _PALLAS_STAGE_ALGS
-            and not config.runWL
-            and not config.storeCoeff
-            and k_block == 1
-        )
-        if (config.backend == "pallas" and alg in ("rls", "dd-rls")
-                and not config.runWL and not config.storeCoeff):
-            from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
-
-            # dd-rls needs the O(1) square-QAM slicer; data-aided rls has
-            # no slicer and supports any constellation
-            use_pallas_rls = (alg == "rls" or _square_qam_levels(
-                const_np.real, const_np.imag) is not None)
-        else:
-            use_pallas_rls = False
+        use_kernel = _use_kernel(config, alg)
         use_blocked = (
             k_block > 1
             and alg not in ("rls", "dd-rls")
@@ -908,16 +693,12 @@ def mimo_adapt_equalizer(sig, config: MIMOEqualizerConfig = None, symb_ref=None,
             and length >= k_block
         )
         for _ in range(n_iter):
-            if use_pallas:
-                sig_out, H, err_sq = _adapt_eq_stage_pallas(
-                    sig_pad, symb_ref, H, const_np, float(mus[stage]),
-                    alg, sps, n_taps, n_start, length)
-                h_iter = H[None]
-            elif use_pallas_rls:
-                sig_out, H, Sd, err_sq = _adapt_eq_stage_pallas_rls(
-                    sig_pad, symb_ref, H, Sd, const_np,
-                    float(config.lambdaRLS), alg, sps, n_taps, n_start,
-                    length)
+            if use_kernel:
+                y_b, H_b, e_b = _adapt_eq_stage_kernel(
+                    sig_pad[None], symb_ref[None], H[None], const_np,
+                    float(mus[stage]), alg, sps, n_taps, n_start, length,
+                    config.interpret)
+                sig_out, H, err_sq = y_b[0], H_b[0], e_b[0]
                 h_iter = H[None]
             elif use_blocked:
                 n_main = (length // k_block) * k_block
@@ -966,8 +747,7 @@ def mimo_apply(H, sig, sps=2):
     The throughput companion to :func:`mimo_adapt_equalizer` (SURVEY.md §7's
     tap-freeze-and-filter strategy): after the adaptive stages converge, the
     remaining signal is filtered with frozen taps — an embarrassingly
-    parallel (nSym, taps, modes) gather + einsum that XLA tiles onto the
-    MXU, instead of a per-symbol scan. Numerically identical to running the
+    parallel correlation bank, instead of a per-symbol scan. Numerically identical to running the
     equalizer with ``alg='static'``.
 
     Parameters
@@ -988,13 +768,12 @@ def mimo_apply(H, sig, sps=2):
     n_sym = int(np.fix((sig.shape[0] + 2 * l_pad - n_taps) / sps + 1))
     # y_o[s] = sum_{i,t} H[o,i,t] * xp[s*sps + t]: a bank of correlations,
     # evaluated in the frequency domain (no (nSym, taps, modes) window
-    # materialization). HIGHEST keeps the mode-mixing contraction in f32 —
-    # the default MXU path rounds to bf16 (~1e-2 relative error on the
-    # equalized symbols, measured on v5e).
+    # materialization). HIGHEST keeps the mode-mixing contraction in f32:
+    # a default-precision f32 matmul may run in a reduced-precision mode
+    # (bf16 or TF32, depending on the device).
     n = sig_pad.shape[0]
     nfft = 1 << int(np.ceil(np.log2(n)))
-    # time on the minor (lane) axis throughout — FFTs along a non-minor axis
-    # with a 2-wide minor dim pay layout transposes on TPU (see edc)
+    # time on the minor axis throughout (see edc)
     X = jnp.fft.fft(sig_pad.T, n=nfft, axis=-1)  # (modes_in, nfft)
     Hf = jnp.fft.fft(H[..., ::-1], n=nfft, axis=-1)  # (o, i, nfft)
     Yf = jnp.einsum("if,oif->of", X, Hf,

@@ -1,6 +1,6 @@
 """Sequence synchronization: align Tx references to received signals.
 
-TPU-native counterpart of reference ``optic/dsp/synchronization.py``
+Counterpart of reference ``optic/dsp/synchronization.py``
 (syncDataSequences, synchronization.py:30): tiles/pads the reference to the
 received length, runs the cross-correlation symbol synchronizer, and
 regenerates the reference waveform ('symbols' mode) or re-detects symbols

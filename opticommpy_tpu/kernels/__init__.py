@@ -1,22 +1,11 @@
-"""Pallas TPU kernels for the serial hot loops.
+"""Hand-written kernels for the serial hot loops.
 
-Built where the recurrence defeats XLA's batching (true per-symbol state):
-- :mod:`bps_pallas` — blind phase search with the distance pipeline in VMEM.
-- :mod:`mimo_pallas` — NxN adaptive equalizer recurrence, lms/nlms/cma/rde
-  rules (taps resident in VMEM scratch across the whole signal; 3.7x the XLA
-  scan on TPU v5e).
-- :mod:`rls_pallas` — RLS/DD-RLS equalizer recurrence (per-mode inverse
-  correlation matrices resident in VMEM).
-- :mod:`ddpll_pallas` — decision-directed PLL recurrence with pilots.
-- :mod:`gardner_pallas` — Gardner clock-recovery NCO loop (data-dependent
-  skip/stuff pointers; iteration-indexed records + vectorized placement).
+- :mod:`mimo_pallas` — NxN adaptive equalizer recurrence (lms/nlms/cma/rde/
+  da-rde rules) as a Pallas kernel on the Triton route: one program per
+  (signal, output mode), taps held in registers across the whole stage.
 """
 
-from opticommpy_tpu.kernels.bps_pallas import bps_pallas  # noqa: F401
-from opticommpy_tpu.kernels.ddpll_pallas import ddpll_pallas  # noqa: F401
-from opticommpy_tpu.kernels.gardner_pallas import gardner_pallas  # noqa: F401
 from opticommpy_tpu.kernels.mimo_pallas import (  # noqa: F401
     mimo_eq_pallas,
-    mimo_lms_pallas,
+    mimo_eq_pallas_batch,
 )
-from opticommpy_tpu.kernels.rls_pallas import mimo_rls_pallas  # noqa: F401

@@ -1,30 +1,39 @@
-"""Pallas TPU kernels for the NxN MIMO adaptive equalizer recurrence.
+"""Pallas (Triton route) kernel for the NxN MIMO adaptive equalizer recurrence.
 
-The adaptive equalizer is the framework's hardest kernel (SURVEY.md §7): a
-true per-symbol recurrence (the taps updated at symbol k feed symbol k+1), so
-neither vmap nor the MXU can parallelize across time. The ``lax.scan``
-formulation pays XLA loop overhead per 240-FLOP iteration (~3 us/symbol on
-TPU). This kernel runs the whole recurrence inside one Pallas program:
+The adaptive equalizer is a true per-symbol recurrence (the taps updated at
+symbol k filter symbol k+1), so neither vmap nor a matrix unit parallelizes
+it across time. The ``lax.scan`` formulation pays XLA's loop overhead on
+every symbol: on a GPU, at least one kernel launch per symbol. This kernel
+runs a whole training stage inside one Triton program per (signal, output
+mode):
 
-- the tap tensor H lives in a VMEM scratch register block for the entire
-  signal,
-- input windows are pre-gathered to a (N, 2*taps) layout (real/imag planes)
-  and streamed through VMEM by the grid pipeline in blocks,
-- each ``fori_loop`` iteration does the filter dot product, the
-  rule-specific error, and the rank-1 gradient update on (1, lanes) tiles.
+- the output mode's tap row ``H[o]`` (input modes x taps, real and imaginary
+  planes) is the loop carry of an in-kernel ``fori_loop``, so it lives in
+  registers for the whole stage;
+- each iteration reads the symbol's window straight out of the padded
+  signal at offset ``(n_start + k) * sps``: no pre-gathered window tensor;
+- the batch and the output modes spread across programs. Each output mode's
+  row update depends only on its own output and error, so the programs are
+  independent.
 
-Update rules (selected at trace time via the static ``alg`` argument, so each
-variant compiles to its own straight-line kernel — mirroring the reference's
-per-rule Numba kernels equalization.py:519-973):
+Block shapes are powers of two (Triton's rule): input modes pad to
+``next_pow2(modes)`` with zero rows and the tap window to
+``next_pow2(taps)`` with a lane mask, so 2x2 at 15 taps runs on (2, 16)
+tiles.
 
-- ``'lms'``   — data-aided for the first ``n_train`` symbols, decision-
-  directed afterwards (the reference's da/dd-lms training schedule).
-- ``'nlms'``  — same error, window normalized by its per-input-mode power.
-- ``'cma'``   — blind constant-modulus: e = (R - |y|^2) y.
-- ``'rde'``   — blind radius-directed: e = (R_dec^2 - |y|^2) y with R_dec the
-  nearest constellation radius.
+Update rules (static ``alg``, each compiles to its own kernel; reference
+per-rule kernels equalization.py:519-973):
 
-Interpret mode runs on CPU for tests.
+- ``'lms'``    data-aided for the first ``n_train`` symbols, then
+  decision-directed (the reference's da/dd-lms schedule; ``n_train=0`` is
+  the scan path's ``'dd-lms'``).
+- ``'nlms'``   same error, window normalized by its per-input-mode power.
+- ``'cma'``    blind constant modulus: e = (R - |y|^2) y.
+- ``'rde'``    blind radius directed: e = (R_dec^2 - |y|^2) y.
+- ``'da-rde'`` data-aided radius: R from the reference symbol.
+
+The arithmetic is float32 throughout. ``interpret=True`` runs the kernel in
+the Pallas interpreter (CPU tests); the compiled kernel needs a CUDA GPU.
 """
 
 from functools import partial
@@ -33,575 +42,279 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pltriton
 
-from opticommpy_tpu.kernels._util import auto_block, split_ri
-from opticommpy_tpu.kernels.bps_pallas import _square_qam_levels
+__all__ = ["mimo_eq_pallas", "mimo_eq_pallas_batch", "mimo_eq_stage",
+           "square_qam_levels", "KERNEL_ALGS"]
 
-__all__ = ["mimo_lms_pallas", "mimo_eq_pallas", "mimo_eq_pallas_batch"]
+KERNEL_ALGS = ("lms", "nlms", "cma", "rde", "da-rde")
+
+# Far-away padding for the constellation / radius vectors: a padded entry
+# never wins the nearest-point search.
+_FAR = 1e30
 
 
-def _kernel(win_re_ref, win_im_ref, ref_re_ref, ref_im_ref, cr_ref, ci_ref,
-            aux_ref, h0_re_ref, h0_im_ref, out_re_ref, out_im_ref,
-            hout_re_ref, hout_im_ref, h_re, h_im, *, block, width, mu,
-            n_train, m_const, alg, m_aux, n_modes=2, qam_grid=None):
-    """Grid step over symbol blocks; H carried in VMEM scratch across steps."""
+def _next_pow2(n):
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def square_qam_levels(c_re, c_im, tol=1e-5):
+    """(lo, step, levels) if the constellation is a uniform square grid,
+    else None.
+
+    On such a grid the nearest point factorizes per axis, so the slicer is
+    a clipped rounding to a level index instead of a search over all M
+    points. ``levels`` are the constellation's own float32 real parts, one
+    per index, so a decision equals the constellation point bit for bit.
+    """
+    c_re = np.asarray(c_re, np.float32)
+    c_im = np.asarray(c_im, np.float32)
+    re = np.unique(np.round(c_re / tol) * tol)
+    im = np.unique(np.round(c_im / tol) * tol)
+    if len(re) != len(im) or len(re) < 2:
+        return None
+    if len(re) * len(im) != len(c_re):
+        return None
+    steps = np.diff(re)
+    if not (np.allclose(re, im, atol=tol)
+            and np.allclose(steps, steps[0], atol=tol)):
+        return None
+    pts = {(round(float(a) / tol), round(float(b) / tol))
+           for a, b in zip(c_re, c_im)}
+    if len(pts) != len(re) * len(im):
+        return None
+    # exact level of each index: the float32 real part nearest to it
+    levels = tuple(float(c_re[np.argmin(np.abs(c_re - r))]) for r in re)
+    step = (levels[-1] - levels[0]) / (len(levels) - 1)
+    return levels[0], step, levels
+
+
+def _nearest(d2, vals):
+    """Entry of ``vals`` at the first minimum of ``d2`` (1-D, same shape)."""
+    idx = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0)
+    first = jnp.min(jnp.where(d2 == jnp.min(d2), idx, d2.shape[0]))
+    return jnp.sum(jnp.where(idx == first, vals, 0.0))
+
+
+def _stage_kernel(xr_ref, xi_ref, rr_ref, ri_ref, hr0_ref, hi0_ref, cr_ref,
+                  ci_ref, aux_ref, yr_ref, yi_ref, hr_ref, hi_ref, *,
+                  n_start, length, sps, n_taps, n_modes, mu, n_train, alg,
+                  qam_grid):
     b = pl.program_id(0)
+    o = pl.program_id(1)
+    mp, tp = hr0_ref.shape[2], hr0_ref.shape[3]
+    rows = jax.lax.broadcasted_iota(jnp.int32, (mp, tp), 0)
+    lanes = jax.lax.broadcasted_iota(jnp.int32, (mp, tp), 1)
+    live = ((rows < n_modes) & (lanes < n_taps)).astype(jnp.float32)
+    const_re = cr_ref[...]
+    const_im = ci_ref[...]
+    aux = aux_ref[...]
 
-    @pl.when(b == 0)
-    def _():
-        h_re[...] = h0_re_ref[...]
-        h_im[...] = h0_im_ref[...]
+    def quantize(x):
+        lo, step, levels = qam_grid
+        k = jnp.clip(jnp.floor((x - lo) / step + 0.5), 0.0,
+                     len(levels) - 1.0)
+        out = jnp.float32(levels[0])
+        for j, level in enumerate(levels[1:], 1):
+            out = jnp.where(k == j, jnp.float32(level), out)
+        return out
 
-    def body(i, _):
-        w_re = win_re_ref[i, :]  # (width,) flattened taps x modes
-        w_im = win_im_ref[i, :]
-        # filter outputs for all output modes: o = sum(H[o] * w) (complex)
-        hr = h_re[...]  # (n_modes, width)
-        hi = h_im[...]
-        o_re = jnp.sum(hr * w_re[None, :] - hi * w_im[None, :], axis=1)
-        o_im = jnp.sum(hr * w_im[None, :] + hi * w_re[None, :], axis=1)
-
+    def body(k, carry):
+        hr, hi = carry
+        start = (n_start + k) * sps
+        wr = xr_ref[b, :, pl.ds(start, tp)] * live
+        wi = xi_ref[b, :, pl.ds(start, tp)] * live
+        # y = sum_(i,t) H[o, i, t] * w[i, t]  (complex, no conjugate)
+        y_re = jnp.sum(jnp.sum(hr * wr - hi * wi, axis=1))
+        y_im = jnp.sum(jnp.sum(hr * wi + hi * wr, axis=1))
+        p2 = y_re * y_re + y_im * y_im
         if alg in ("lms", "nlms"):
-            k_global = b * block + i
-            # reference: data-aided before n_train, decision-directed after
-            r_re = ref_re_ref[i, :]  # (n_modes,)
-            r_im = ref_im_ref[i, :]
             if qam_grid is not None:
-                # uniform square grid: the nearest point factorizes per
-                # axis -> O(1) quantize (same trick as the Pallas BPS)
-                lo, step, n_lev = qam_grid
-
-                def q(x):
-                    k = jnp.clip(jnp.round((x - lo) / step), 0.0,
-                                 n_lev - 1.0)
-                    return k * step + lo
-
-                dec_re = q(o_re)
-                dec_im = q(o_im)
+                dec_re, dec_im = quantize(y_re), quantize(y_im)
             else:
-                d2 = (o_re[:, None] - cr_ref[0, :][None, :]) ** 2 + (
-                    o_im[:, None] - ci_ref[0, :][None, :]
-                ) ** 2  # (n_modes, M)
-                # nearest constellation point via min-mask reduction (Mosaic
-                # supports only 2-D gathers; an argmin-indexed 1-D gather
-                # fails to lower)
-                ind = jnp.argmin(d2, axis=1)  # (n_modes,)
-                cols = jax.lax.broadcasted_iota(
-                    jnp.int32, (n_modes, m_const), 1)
-                sel = (cols == ind[:, None]).astype(jnp.float32)
-                dec_re = jnp.sum(sel * cr_ref[0, :][None, :], axis=1)
-                dec_im = jnp.sum(sel * ci_ref[0, :][None, :], axis=1)
-            use_ref = k_global < n_train
-            t_re = jnp.where(use_ref, r_re, dec_re)
-            t_im = jnp.where(use_ref, r_im, dec_im)
-            e_re = t_re - o_re
-            e_im = t_im - o_im
+                d2 = (const_re - y_re) ** 2 + (const_im - y_im) ** 2
+                dec_re, dec_im = _nearest(d2, const_re), _nearest(d2, const_im)
+            use_ref = k < n_train
+            e_re = jnp.where(use_ref, rr_ref[b, o, n_start + k], dec_re) - y_re
+            e_im = jnp.where(use_ref, ri_ref[b, o, n_start + k], dec_im) - y_im
         elif alg == "cma":
-            # e = (R - |y|^2) * y ; R in aux_ref[0, 0]
-            err = aux_ref[0, 0] - (o_re**2 + o_im**2)  # (n_modes,)
-            e_re = err * o_re
-            e_im = err * o_im
+            err = aux_ref[0] - p2
+            e_re, e_im = err * y_re, err * y_im
         elif alg == "rde":
-            # nearest radius among aux_ref[0, :] (constellation radii)
-            r = jnp.sqrt(o_re**2 + o_im**2)  # (n_modes,)
-            d2 = (r[:, None] - aux_ref[0, :][None, :]) ** 2  # (n_modes, m_aux)
-            ind = jnp.argmin(d2, axis=1)
-            cols = jax.lax.broadcasted_iota(jnp.int32, (n_modes, m_aux), 1)
-            sel = (cols == ind[:, None]).astype(jnp.float32)
-            r_dec = jnp.sum(sel * aux_ref[0, :][None, :], axis=1)
-            err = r_dec**2 - (o_re**2 + o_im**2)
-            e_re = err * o_re
-            e_im = err * o_im
+            r = jnp.sqrt(p2)
+            r_dec = _nearest((aux - r) ** 2, aux)
+            err = r_dec * r_dec - p2
+            e_re, e_im = err * y_re, err * y_im
         elif alg == "da-rde":
-            # data-aided radius: R from the reference symbol, not the
-            # decision (reference dardeUp; phase-blind first stage)
-            r_re = ref_re_ref[i, :]
-            r_im = ref_im_ref[i, :]
-            err = (r_re**2 + r_im**2) - (o_re**2 + o_im**2)
-            e_re = err * o_re
-            e_im = err * o_im
+            t_re = rr_ref[b, o, n_start + k]
+            t_im = ri_ref[b, o, n_start + k]
+            err = (t_re * t_re + t_im * t_im) - p2
+            e_re, e_im = err * y_re, err * y_im
         else:
-            raise ValueError(f"unknown alg {alg}")
-
-        # rank-1 gradient update: H[o] += mu * e[o] * conj(w)
+            raise ValueError(f"unknown alg {alg!r}")
         if alg == "nlms":
-            # normalize by the per-input-mode window power (reference
-            # nlmsUp equalization.py:519): lane l belongs to input mode
-            # l % n_modes (flattened taps x modes layout)
-            lane = jax.lax.broadcasted_iota(jnp.int32, (1, width), 1)[0, :]
-            pw = w_re**2 + w_im**2
-            p_mode = jnp.zeros_like(pw)
-            for mm in range(n_modes):  # static unroll, n_modes small
-                msk = (lane % n_modes == mm).astype(jnp.float32)
-                p_mode = p_mode + msk * jnp.sum(pw * msk)
-            # zero-padded tail windows have zero power — guard the division
-            # (the numerator is zero there, so the update is a no-op)
-            p_mode = jnp.maximum(p_mode, 1e-12)
-            g_re = w_re / p_mode
-            g_im = w_im / p_mode
+            # per-input-mode window power (reference nlmsUp,
+            # equalization.py:519); zero rows are padding, guard them
+            pw = jnp.sum(wr * wr + wi * wi, axis=1, keepdims=True)
+            inv = 1.0 / jnp.maximum(pw, 1e-12)
+            gr, gi = wr * inv, wi * inv
         else:
-            g_re = w_re
-            g_im = w_im
-        upd_re = e_re[:, None] * g_re[None, :] + e_im[:, None] * g_im[None, :]
-        upd_im = e_im[:, None] * g_re[None, :] - e_re[:, None] * g_im[None, :]
-        h_re[...] = hr + mu * upd_re
-        h_im[...] = hi + mu * upd_im
+            gr, gi = wr, wi
+        # H[o] += mu * e * conj(g)
+        hr = hr + mu * (e_re * gr + e_im * gi)
+        hi = hi + mu * (e_im * gr - e_re * gi)
+        yr_ref[b, o, k] = y_re
+        yi_ref[b, o, k] = y_im
+        return hr, hi
 
-        out_re_ref[i, :] = o_re
-        out_im_ref[i, :] = o_im
-        return 0
-
-    jax.lax.fori_loop(0, block, body, 0)
-
-    @pl.when(b == pl.num_programs(0) - 1)
-    def _():
-        hout_re_ref[...] = h_re[...]
-        hout_im_ref[...] = h_im[...]
+    hr, hi = jax.lax.fori_loop(0, length, body, (hr0_ref[b, o], hi0_ref[b, o]))
+    hr_ref[b, o] = hr
+    hi_ref[b, o] = hi
 
 
-@partial(jax.jit,
-         static_argnames=("n_taps", "sps", "mu", "n_train", "block", "alg",
-                          "qam_grid", "interpret"))
-def _mimo_eq_run(sig_re, sig_im, ref_re, ref_im, const_re, const_im, aux,
-                 h0_re, h0_im, n_taps, sps, mu, n_train, block=1024,
-                 alg="lms", qam_grid=None, interpret=False):
-    """sig_*: (N, n_modes) f32 at sps samples/symbol; ref_*: (nSym, n_modes)."""
-    n_sym = ref_re.shape[0]
-    n_blocks = int(np.ceil(n_sym / block))
-    n_pad_sym = n_blocks * block
-    l_pad = n_taps // 2
-    n_modes = sig_re.shape[1]
-    width = n_modes * n_taps  # flattened (taps, modes)
-
-    def windows(x):
-        from opticommpy_tpu.kernels._util import sliding_windows
-
-        xp = jnp.pad(x, ((l_pad, l_pad + sps + n_taps + n_pad_sym * sps
-                          - x.shape[0]), (0, 0)))
-        # build only the n_sym live rows — _mimo_eq_run_windows pads the
-        # tail block itself (building n_pad_sym here would double-pad)
-        w = sliding_windows(xp, n_sym, sps, n_taps)  # (n_sym, taps, modes)
-        return w.reshape(n_sym, width)
-
-    out_re, out_im, h_re, h_im = _mimo_eq_run_windows(
-        windows(sig_re), windows(sig_im), ref_re, ref_im, const_re,
-        const_im, aux, h0_re, h0_im, n_modes, mu, n_train, block, alg,
-        qam_grid, interpret)
-    return out_re, out_im, h_re, h_im
-
-
-@partial(jax.jit,
-         static_argnames=("n_modes", "mu", "n_train", "block", "alg",
-                          "qam_grid", "interpret"))
-def _mimo_eq_run_windows(w_re, w_im, ref_re, ref_im, const_re, const_im,
-                         aux, h0_re, h0_im, n_modes, mu, n_train,
-                         block=1024, alg="lms", qam_grid=None,
-                         interpret=False):
-    """Windows-level core: w_*: (nSym, width) pre-gathered symbol windows
-    in the flattened (taps, modes) lane layout; ref_*: (nSym, n_modes).
-
-    Exposed separately so the multi-stage training path
-    (:func:`opticommpy_tpu.dsp.mimo_adapt_equalizer` with
-    ``backend='pallas'``) can slice per-stage windows from ITS padded
-    signal with exactly the scan stages' alignment and chain H between
-    stage kernels."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_sym = ref_re.shape[0]
-    n_blocks = int(np.ceil(n_sym / block))
-    n_pad_sym = n_blocks * block
-    width = w_re.shape[1]
-    # zero-pad the tail block: zero windows make every rule's update a
-    # no-op (the gradient is e * conj(0); nlms divides by the guarded
-    # power with a zero numerator), so the carried H is unaffected
-    w_re = jnp.pad(w_re, ((0, n_pad_sym - n_sym), (0, 0)))
-    w_im = jnp.pad(w_im, ((0, n_pad_sym - n_sym), (0, 0)))
-    rp_re = jnp.pad(ref_re, ((0, n_pad_sym - n_sym), (0, 0)))
-    rp_im = jnp.pad(ref_im, ((0, n_pad_sym - n_sym), (0, 0)))
-    m_const = int(const_re.shape[0])
-    m_aux = int(aux.shape[0])
-
-    kernel = partial(_kernel, block=block, width=width, mu=mu,
-                     n_train=n_train, m_const=m_const, alg=alg, m_aux=m_aux,
-                     n_modes=n_modes, qam_grid=qam_grid)
-    out_re, out_im, h_re, h_im = pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((block, width), lambda i: (i, 0)),
-            pl.BlockSpec((block, width), lambda i: (i, 0)),
-            pl.BlockSpec((block, n_modes), lambda i: (i, 0)),
-            pl.BlockSpec((block, n_modes), lambda i: (i, 0)),
-            pl.BlockSpec((1, m_const), lambda i: (0, 0)),
-            pl.BlockSpec((1, m_const), lambda i: (0, 0)),
-            pl.BlockSpec((1, m_aux), lambda i: (0, 0)),
-            pl.BlockSpec((n_modes, width), lambda i: (0, 0)),
-            pl.BlockSpec((n_modes, width), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, n_modes), lambda i: (i, 0)),
-            pl.BlockSpec((block, n_modes), lambda i: (i, 0)),
-            pl.BlockSpec((n_modes, width), lambda i: (0, 0)),
-            pl.BlockSpec((n_modes, width), lambda i: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad_sym, n_modes), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad_sym, n_modes), jnp.float32),
-            jax.ShapeDtypeStruct((n_modes, width), jnp.float32),
-            jax.ShapeDtypeStruct((n_modes, width), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((n_modes, width), jnp.float32),
-            pltpu.VMEM((n_modes, width), jnp.float32),
-        ],
-        interpret=interpret,
-    )(w_re, w_im, rp_re, rp_im, const_re[None, :], const_im[None, :],
-      aux[None, :], h0_re, h0_im)
-    return out_re[:n_sym], out_im[:n_sym], h_re, h_im
-
-
-def mimo_eq_pallas(sig, symb_ref, const, alg="lms", n_taps=15, sps=2, mu=2e-3,
-                   n_train=10000, block=1024, H0=None, interpret=False):
-    """Pallas NxN adaptive equalizer with selectable update rule.
-
-    ``alg``: 'lms' (data-aided -> decision-directed), 'nlms' (normalized),
-    'cma' (blind constant-modulus), 'rde' (blind radius-directed),
-    'da-rde' (data-aided radius-directed — phase-blind training stage).
-    Parameters mirror :func:`opticommpy_tpu.dsp.mimo_adapt_equalizer`.
-    For the blind rules ``symb_ref`` may be None. The mode count is taken from
-    ``sig.shape[1]`` (2 = polmux, 4+ = SDM; the reference equalizer is NxN,
-    equalization.py:125). Returns (equalized symbols (nSym, n_modes)
-    complex, tap tensor H (n_modes, n_modes, n_taps)).
-    """
-    sig_re, sig_im = split_ri(sig)  # no complex host->device transfer
-    const = np.asarray(const).astype(np.complex64)
-    n_modes = sig_re.shape[1]
-    if symb_ref is None:
-        if alg in ("lms", "nlms", "da-rde"):
-            raise ValueError(
-                "symb_ref is required for alg='lms'/'nlms'/'da-rde'")
-        n_sym = sig_re.shape[0] // sps
-        ref_re = ref_im = jnp.zeros((n_sym, n_modes), dtype=jnp.float32)
-    else:
-        ref_re, ref_im = split_ri(symb_ref)
-    if H0 is None:
-        h0 = np.zeros((n_modes, n_modes, n_taps), dtype=np.complex64)
-        h0[np.arange(n_modes), np.arange(n_modes), n_taps // 2] = 1.0
-    else:
-        h0 = np.asarray(H0).astype(np.complex64)
-    h0_flat = h0.transpose(0, 2, 1).reshape(n_modes, n_modes * n_taps)
-
-    # rule-specific host constants (reference cmaUp:788 / rdeUp:846)
-    if alg == "cma":
-        r_cma = np.mean(np.abs(const) ** 4) / np.mean(np.abs(const) ** 2)
-        aux = np.array([r_cma], dtype=np.float32)
-    elif alg == "rde":
-        aux = np.unique(np.round(np.abs(const), 6)).astype(np.float32)
-    else:
-        aux = np.zeros(1, dtype=np.float32)
-
-    qam_grid = _square_qam_levels(const.real, const.imag)
-    out_re, out_im, h_re, h_im = _mimo_eq_run(
-        sig_re, sig_im, ref_re, ref_im,
-        jnp.asarray(const.real), jnp.asarray(const.imag), jnp.asarray(aux),
-        jnp.asarray(h0_flat.real), jnp.asarray(h0_flat.imag),
-        int(n_taps), int(sps), float(mu), int(n_train), int(block), str(alg),
-        qam_grid, bool(interpret),
-    )
-    y = out_re + 1j * out_im
-    h = (h_re + 1j * h_im).reshape(n_modes, n_taps, n_modes).transpose(0, 2, 1)
-    return y, h
-
-
-def mimo_lms_pallas(sig, symb_ref, const, n_taps=15, sps=2, mu=2e-3,
-                    n_train=10000, block=1024, H0=None, interpret=False):
-    """Pallas 2x2 LMS equalizer: data-aided then decision-directed.
-
-    Back-compat wrapper for :func:`mimo_eq_pallas` with ``alg='lms'``.
-    """
-    return mimo_eq_pallas(sig, symb_ref, const, "lms", n_taps, sps, mu,
-                          n_train, block, H0, interpret)
-
-
-# ---------------------------------------------------------------------------
-# Batched variant: B independent signals adapt in ONE kernel pass
-# ---------------------------------------------------------------------------
-
-
-def _kernel_batch(win_re_ref, win_im_ref, ref_re_ref, ref_im_ref, cr_ref,
-                  ci_ref, aux_ref, h0_re_ref, h0_im_ref, out_re_ref,
-                  out_im_ref, hout_re_ref, hout_im_ref, h_re, h_im, *,
-                  block, n_batch, width, mu, n_train, m_const, alg, m_aux,
-                  n_modes=2, qam_grid=None):
-    """Grid step over symbol blocks; per-signal H tensors in VMEM scratch.
-
-    Identical math to :func:`_kernel` for every signal — the batch rides the
-    sublane axis ((n_batch, width) planes per symbol), so the per-symbol
-    instruction stream serves all B recurrences at once instead of leaving
-    7/8 of each vector register idle (a vmapped per-signal kernel measured
-    ~2.7x slower than this layout for the analogous BPS case on v5e).
-    """
-    b = pl.program_id(0)
-
-    @pl.when(b == 0)
-    def _():
-        h_re[...] = h0_re_ref[...]
-        h_im[...] = h0_im_ref[...]
-
-    def body(i, _):
-        w_re = win_re_ref[i]  # (n_batch, width)
-        w_im = win_im_ref[i]
-        hr = h_re[...]  # (n_modes, n_batch, width)
-        hi = h_im[...]
-        o_re = jnp.sum(hr * w_re[None] - hi * w_im[None], axis=-1)
-        o_im = jnp.sum(hr * w_im[None] + hi * w_re[None], axis=-1)
-
-        if alg in ("lms", "nlms"):
-            k_global = b * block + i
-            r_re = ref_re_ref[i]  # (n_modes, B)
-            r_im = ref_im_ref[i]
-            if qam_grid is not None:
-                lo, step, n_lev = qam_grid
-
-                def q(x):
-                    k = jnp.clip(jnp.round((x - lo) / step), 0.0,
-                                 n_lev - 1.0)
-                    return k * step + lo
-
-                dec_re = q(o_re)
-                dec_im = q(o_im)
-            else:
-                d2 = (o_re[..., None] - cr_ref[0, :][None, None, :]) ** 2 + (
-                    o_im[..., None] - ci_ref[0, :][None, None, :]) ** 2
-                ind = jnp.argmin(d2, axis=-1)  # (n_modes, B)
-                cols = jax.lax.broadcasted_iota(
-                    jnp.int32, (n_modes, n_batch, m_const), 2)
-                sel = (cols == ind[..., None]).astype(jnp.float32)
-                dec_re = jnp.sum(sel * cr_ref[0, :][None, None, :], axis=-1)
-                dec_im = jnp.sum(sel * ci_ref[0, :][None, None, :], axis=-1)
-            use_ref = k_global < n_train
-            t_re = jnp.where(use_ref, r_re, dec_re)
-            t_im = jnp.where(use_ref, r_im, dec_im)
-            e_re = t_re - o_re
-            e_im = t_im - o_im
-        elif alg == "cma":
-            err = aux_ref[0, 0] - (o_re**2 + o_im**2)  # (n_modes, B)
-            e_re = err * o_re
-            e_im = err * o_im
-        elif alg == "rde":
-            r = jnp.sqrt(o_re**2 + o_im**2)  # (n_modes, B)
-            d2 = (r[..., None] - aux_ref[0, :][None, None, :]) ** 2
-            ind = jnp.argmin(d2, axis=-1)
-            cols = jax.lax.broadcasted_iota(
-                jnp.int32, (n_modes, n_batch, m_aux), 2)
-            sel = (cols == ind[..., None]).astype(jnp.float32)
-            r_dec = jnp.sum(sel * aux_ref[0, :][None, None, :], axis=-1)
-            err = r_dec**2 - (o_re**2 + o_im**2)
-            e_re = err * o_re
-            e_im = err * o_im
-        elif alg == "da-rde":
-            r_re = ref_re_ref[i]  # (n_modes, B)
-            r_im = ref_im_ref[i]
-            err = (r_re**2 + r_im**2) - (o_re**2 + o_im**2)
-            e_re = err * o_re
-            e_im = err * o_im
-        else:
-            raise ValueError(f"unknown alg {alg}")
-
-        if alg == "nlms":
-            lane = jax.lax.broadcasted_iota(jnp.int32, (n_batch, width), 1)
-            pw = w_re**2 + w_im**2
-            p_mode = jnp.zeros_like(pw)
-            for mm in range(n_modes):  # static unroll, n_modes small
-                msk = (lane % n_modes == mm).astype(jnp.float32)
-                p_mode = p_mode + msk * jnp.sum(pw * msk, axis=-1,
-                                                keepdims=True)
-            p_mode = jnp.maximum(p_mode, 1e-12)
-            g_re = w_re / p_mode
-            g_im = w_im / p_mode
-        else:
-            g_re = w_re
-            g_im = w_im
-        upd_re = e_re[..., None] * g_re[None] + e_im[..., None] * g_im[None]
-        upd_im = e_im[..., None] * g_re[None] - e_re[..., None] * g_im[None]
-        h_re[...] = hr + mu * upd_re
-        h_im[...] = hi + mu * upd_im
-
-        out_re_ref[i] = o_re
-        out_im_ref[i] = o_im
-        return 0
-
-    jax.lax.fori_loop(0, block, body, 0)
-
-    @pl.when(b == pl.num_programs(0) - 1)
-    def _():
-        hout_re_ref[...] = h_re[...]
-        hout_im_ref[...] = h_im[...]
-
-
-@partial(jax.jit,
-         static_argnames=("n_modes", "mu", "n_train", "block", "alg",
-                          "qam_grid", "interpret"))
-def _mimo_eq_run_batch_windows(w_re, w_im, rp_re, rp_im, const_re, const_im,
-                               aux, hf_re, hf_im, n_modes, mu, n_train,
-                               block=256, alg="lms", qam_grid=None,
-                               interpret=False):
-    """Windows-level batched runner (multi-stage training entry point).
-
-    w_*: (n_pad_sym, B, width) pre-gathered symbol windows (n_pad_sym a
-    multiple of ``block``; width = n_modes*n_taps, tap-major/mode-minor
-    lanes); rp_*: (n_pad_sym, n_modes, B) references; hf_*: (n_modes, B,
-    width) fused taps. Returns the raw fused-layout outputs
-    (out_re, out_im, h_re, h_im).
-    """
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_pad_sym, n_batch, width = w_re.shape
-    n_blocks = n_pad_sym // block
-    m_const = int(const_re.shape[-1])
-    m_aux = int(aux.shape[-1])
-
-    kernel = partial(_kernel_batch, block=block, n_batch=n_batch, width=width,
-                     mu=mu, n_train=n_train, m_const=m_const, alg=alg,
-                     m_aux=m_aux, n_modes=n_modes, qam_grid=qam_grid)
+@partial(jax.jit, static_argnames=(
+    "n_start", "length", "sps", "n_taps", "mu", "n_train", "alg", "qam_grid",
+    "interpret"))
+def _stage_call(xr, xi, rr, ri, hr, hi, cr, ci, aux, *, n_start, length, sps,
+                n_taps, mu, n_train, alg, qam_grid, interpret):
+    n_batch, n_modes = rr.shape[0], rr.shape[1]
+    kernel = partial(_stage_kernel, n_start=n_start, length=length, sps=sps,
+                     n_taps=n_taps, n_modes=n_modes, mu=mu, n_train=n_train,
+                     alg=alg, qam_grid=qam_grid)
+    f32 = jnp.float32
     return pl.pallas_call(
         kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((block, n_batch, width), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block, n_batch, width), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block, n_modes, n_batch), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block, n_modes, n_batch), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, m_const), lambda i: (0, 0)),
-            pl.BlockSpec((1, m_const), lambda i: (0, 0)),
-            pl.BlockSpec((1, m_aux), lambda i: (0, 0)),
-            pl.BlockSpec((n_modes, n_batch, width), lambda i: (0, 0, 0)),
-            pl.BlockSpec((n_modes, n_batch, width), lambda i: (0, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, n_modes, n_batch), lambda i: (i, 0, 0)),
-            pl.BlockSpec((block, n_modes, n_batch), lambda i: (i, 0, 0)),
-            pl.BlockSpec((n_modes, n_batch, width), lambda i: (0, 0, 0)),
-            pl.BlockSpec((n_modes, n_batch, width), lambda i: (0, 0, 0)),
-        ],
+        grid=(n_batch, n_modes),
         out_shape=[
-            jax.ShapeDtypeStruct((n_pad_sym, n_modes, n_batch), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad_sym, n_modes, n_batch), jnp.float32),
-            jax.ShapeDtypeStruct((n_modes, n_batch, width), jnp.float32),
-            jax.ShapeDtypeStruct((n_modes, n_batch, width), jnp.float32),
+            jax.ShapeDtypeStruct((n_batch, n_modes, length), f32),
+            jax.ShapeDtypeStruct((n_batch, n_modes, length), f32),
+            jax.ShapeDtypeStruct(hr.shape, f32),
+            jax.ShapeDtypeStruct(hi.shape, f32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((n_modes, n_batch, width), jnp.float32),
-            pltpu.VMEM((n_modes, n_batch, width), jnp.float32),
-        ],
+        backend="triton",
+        # one warp holds a (2, 16) tap tile at one element per thread; the
+        # recurrence is latency-bound, so more warps only add barriers
+        compiler_params=pltriton.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(w_re, w_im, rp_re, rp_im, const_re.reshape(1, -1),
-      const_im.reshape(1, -1), aux.reshape(1, -1), hf_re, hf_im)
+        name="mimo_eq_stage",
+    )(xr, xi, rr, ri, hr, hi, cr, ci, aux)
 
 
-@partial(jax.jit,
-         static_argnames=("n_taps", "sps", "mu", "n_train", "block", "alg",
-                          "qam_grid", "interpret"))
-def _mimo_eq_run_batch(sig_re, sig_im, ref_re, ref_im, const_re, const_im,
-                       aux, h0_re, h0_im, n_taps, sps, mu, n_train,
-                       block=256, alg="lms", qam_grid=None, interpret=False):
-    """sig_*: (B, N, n_modes) f32 planes; ref_*: (B, nSym, n_modes)."""
-    n_batch, _, n_modes = sig_re.shape
-    n_sym = ref_re.shape[1]
-    n_blocks = int(np.ceil(n_sym / block))
-    n_pad_sym = n_blocks * block
-    l_pad = n_taps // 2
-    width = n_modes * n_taps
-
-    def windows(x):  # (B, N, 2) -> (n_pad_sym, B, width)
-        from opticommpy_tpu.kernels._util import sliding_windows
-
-        xp = jnp.pad(x, ((0, 0), (l_pad, l_pad + sps + n_taps
-                                  + n_pad_sym * sps - x.shape[1]), (0, 0)))
-        # build only the n_sym live rows, then zero-pad the tail block:
-        # rows just past n_sym can still cover real signal-tail samples,
-        # and a non-zero phantom window would update H past the last
-        # symbol — something the scan path never does
-        w = sliding_windows(xp, n_sym, sps, n_taps, axis=1)
-        w = w.reshape(n_batch, n_sym, width).transpose(1, 0, 2)
-        return jnp.pad(w, ((0, n_pad_sym - n_sym), (0, 0), (0, 0)))
-
-    w_re = windows(sig_re)
-    w_im = windows(sig_im)
-    # refs to (n_pad_sym, n_modes, B): mode on sublanes, batch on lanes
-    rp_re = jnp.pad(ref_re, ((0, 0), (0, n_pad_sym - n_sym), (0, 0)))
-    rp_im = jnp.pad(ref_im, ((0, 0), (0, n_pad_sym - n_sym), (0, 0)))
-    rp_re = rp_re.transpose(1, 2, 0)
-    rp_im = rp_im.transpose(1, 2, 0)
-    h0_re = h0_re.transpose(1, 0, 2)  # (n_modes, B, width)
-    h0_im = h0_im.transpose(1, 0, 2)
-
-    out_re, out_im, h_re, h_im = _mimo_eq_run_batch_windows(
-        w_re, w_im, rp_re, rp_im, const_re, const_im, aux, h0_re, h0_im,
-        n_modes, mu, n_train, block, alg, qam_grid, interpret)
-    # (n_pad_sym, M, B) -> (B, n_sym, M); (M, B, width) -> (B, M, width)
-    out_re = out_re[:n_sym].transpose(2, 0, 1)
-    out_im = out_im[:n_sym].transpose(2, 0, 1)
-    return out_re, out_im, h_re.transpose(1, 0, 2), h_im.transpose(1, 0, 2)
+def _aux_vector(alg, const):
+    """Rule constant: CMA radius^2 (reference cmaUp:788) or RDE radii."""
+    if alg == "cma":
+        return np.array([np.mean(np.abs(const) ** 4)
+                         / np.mean(np.abs(const) ** 2)], np.float32)
+    if alg == "rde":
+        return np.unique(np.round(np.abs(const), 6)).astype(np.float32)
+    return np.zeros(1, np.float32)
 
 
-def mimo_eq_pallas_batch(sig, symb_ref, const, alg="lms", n_taps=15, sps=2,
-                         mu=2e-3, n_train=10000, block=256, H0=None,
-                         interpret=False):
-    """Batched Pallas NxN adaptive equalizer: B signals in one kernel pass.
+def _padded(v, fill):
+    v = np.asarray(v, np.float32)
+    return np.concatenate([v, np.full(_next_pow2(v.size) - v.size, fill,
+                                      np.float32)])
 
-    Same per-signal math as :func:`mimo_eq_pallas` (each signal's recurrence
-    is independent), with the batch packed on the vector sublane axis — the
-    multi-channel (WDM serving) shape of the adaptive stage.
+
+def mimo_eq_stage(sig_pad, symb_ref, H, const, mu, alg, sps, n_taps, n_start,
+                  length, n_train=0, interpret=False):
+    """One adaptive-equalizer stage for B signals in one kernel launch.
 
     Parameters
     ----------
-    sig : (B, N, 2) complex signals at ``sps`` samples/symbol.
-    symb_ref : (B, nSym, 2) reference symbols (None for blind 'cma'/'rde').
-    H0 : optional (B, 2, 2, n_taps) initial taps (default: central spike).
+    sig_pad : (B, Npad, modes) complex signals, already padded the way
+        :func:`opticommpy_tpu.dsp.mimo_adapt_equalizer` pads them: the
+        window of output symbol ``n`` starts at sample ``n * sps``.
+    symb_ref : (B, nSym, modes) references (zeros for the blind rules).
+    H : (B, modes_out, modes_in, n_taps) complex taps ``H[o, i, t]``.
+    alg : one of :data:`KERNEL_ALGS`.
+    n_start, length : the stage covers output symbols
+        ``n_start .. n_start + length - 1``.
+    n_train : symbols (counted from ``n_start``) that use the reference
+        before ``'lms'``/``'nlms'`` switch to decisions.
+    interpret : run in the Pallas interpreter (for tests on the CPU).
 
     Returns
     -------
-    (y (B, nSym, 2) complex, H (B, 2, 2, n_taps)).
+    (y (B, length, modes) complex64, H (B, modes, modes, n_taps) complex64).
     """
-    sig_re, sig_im = split_ri(sig)
+    if alg not in KERNEL_ALGS:
+        raise ValueError(f"kernel alg must be one of {KERNEL_ALGS}, got {alg!r}")
     const = np.asarray(const).astype(np.complex64)
-    n_batch, _, n_modes = sig_re.shape
+    n_batch, n_samp, n_modes = sig_pad.shape
+    mp, tp = _next_pow2(n_modes), _next_pow2(n_taps)
+    # every window read, including the tap padding, stays inside the array
+    n_need = (n_start + length - 1) * sps + tp
+    x = jnp.moveaxis(jnp.asarray(sig_pad, jnp.complex64), 2, 1)
+    x = jnp.pad(x, ((0, 0), (0, mp - n_modes), (0, max(0, n_need - n_samp))))
+    ref = jnp.moveaxis(jnp.asarray(symb_ref, jnp.complex64), 2, 1)
+    h = jnp.pad(jnp.asarray(H, jnp.complex64),
+                ((0, 0), (0, 0), (0, mp - n_modes), (0, tp - n_taps)))
+    qam_grid = square_qam_levels(const.real, const.imag)
+    aux = _aux_vector(alg, const)
+    yr, yi, hr, hi = _stage_call(
+        jnp.real(x), jnp.imag(x), jnp.real(ref), jnp.imag(ref),
+        jnp.real(h), jnp.imag(h),
+        jnp.asarray(_padded(const.real, _FAR)),
+        jnp.asarray(_padded(const.imag, _FAR)),
+        jnp.asarray(_padded(aux, _FAR)),
+        n_start=int(n_start), length=int(length), sps=int(sps),
+        n_taps=int(n_taps), mu=float(mu), n_train=int(n_train), alg=str(alg),
+        qam_grid=qam_grid, interpret=bool(interpret))
+    y = jnp.moveaxis(jax.lax.complex(yr, yi), 1, 2)
+    H_new = jax.lax.complex(hr, hi)[:, :, :n_modes, :n_taps]
+    return y, H_new
+
+
+def _center_spike(n_batch, n_modes, n_taps):
+    h0 = np.zeros((n_batch, n_modes, n_modes, n_taps), np.complex64)
+    h0[:, np.arange(n_modes), np.arange(n_modes), n_taps // 2] = 1.0
+    return h0
+
+
+def mimo_eq_pallas_batch(sig, symb_ref, const, alg="lms", n_taps=15, sps=2,
+                         mu=2e-3, n_train=10000, H0=None, interpret=False):
+    """Adaptive NxN equalizer for B signals in one kernel launch.
+
+    ``alg``: 'lms' (data-aided for ``n_train`` symbols, then
+    decision-directed), 'nlms', 'cma', 'rde', 'da-rde'. The blind rules
+    accept ``symb_ref=None``.
+
+    Parameters
+    ----------
+    sig : (B, N, modes) complex signals at ``sps`` samples/symbol.
+    symb_ref : (B, nSym, modes) reference symbols.
+    H0 : optional (B, modes, modes, n_taps) initial taps (central spike).
+
+    Returns
+    -------
+    (y (B, nSym, modes) complex, H (B, modes, modes, n_taps)).
+    """
+    sig = jnp.asarray(sig, jnp.complex64)
+    n_batch, n_samp, n_modes = sig.shape
     if symb_ref is None:
         if alg in ("lms", "nlms", "da-rde"):
             raise ValueError(
                 "symb_ref is required for alg='lms'/'nlms'/'da-rde'")
-        n_sym = sig_re.shape[1] // sps
-        ref_re = ref_im = jnp.zeros((n_batch, n_sym, n_modes),
-                                    dtype=jnp.float32)
-    else:
-        ref_re, ref_im = split_ri(symb_ref)
-    if H0 is None:
-        h0 = np.zeros((n_batch, n_modes, n_modes, n_taps), dtype=np.complex64)
-        h0[:, np.arange(n_modes), np.arange(n_modes), n_taps // 2] = 1.0
-    else:
-        h0 = np.asarray(H0).astype(np.complex64)
-    h0_flat = h0.transpose(0, 1, 3, 2).reshape(n_batch, n_modes,
-                                               n_modes * n_taps)
+        symb_ref = jnp.zeros((n_batch, n_samp // sps, n_modes), jnp.complex64)
+    symb_ref = jnp.asarray(symb_ref, jnp.complex64)
+    h0 = _center_spike(n_batch, n_modes, n_taps) if H0 is None else H0
+    l_pad = n_taps // 2
+    sig_pad = jnp.pad(sig, ((0, 0), (l_pad, 0), (0, 0)))
+    return mimo_eq_stage(sig_pad, symb_ref, h0, const, mu, alg, sps, n_taps,
+                         0, symb_ref.shape[1], n_train, interpret)
 
-    if alg == "cma":
-        r_cma = np.mean(np.abs(const) ** 4) / np.mean(np.abs(const) ** 2)
-        aux = np.array([r_cma], dtype=np.float32)
-    elif alg == "rde":
-        aux = np.unique(np.round(np.abs(const), 6)).astype(np.float32)
-    else:
-        aux = np.zeros(1, dtype=np.float32)
 
-    qam_grid = _square_qam_levels(const.real, const.imag)
-    block = auto_block(n_batch, n_modes * n_taps, int(block))
-    out_re, out_im, h_re, h_im = _mimo_eq_run_batch(
-        sig_re, sig_im, ref_re, ref_im,
-        jnp.asarray(const.real), jnp.asarray(const.imag), jnp.asarray(aux),
-        jnp.asarray(h0_flat.real), jnp.asarray(h0_flat.imag),
-        int(n_taps), int(sps), float(mu), int(n_train), int(block), str(alg),
-        qam_grid, bool(interpret),
-    )
-    y = out_re + 1j * out_im
-    h = (h_re + 1j * h_im).reshape(n_batch, n_modes, n_taps,
-                                   n_modes).transpose(0, 1, 3, 2)
-    return y, h
+def mimo_eq_pallas(sig, symb_ref, const, alg="lms", n_taps=15, sps=2, mu=2e-3,
+                   n_train=10000, H0=None, interpret=False):
+    """Single-signal form of :func:`mimo_eq_pallas_batch`.
+
+    ``sig`` is (N, modes); returns (y (nSym, modes), H (modes, modes,
+    n_taps)). The mode count is taken from ``sig.shape[1]`` (2 = polmux,
+    4+ = SDM; the reference equalizer is NxN, equalization.py:125).
+    """
+    y, h = mimo_eq_pallas_batch(
+        jnp.asarray(sig)[None], None if symb_ref is None
+        else jnp.asarray(symb_ref)[None], const, alg, n_taps, sps, mu,
+        n_train, None if H0 is None else np.asarray(H0)[None], interpret)
+    return y[0], h[0]

@@ -1,6 +1,6 @@
 """Physical models: devices, channels, transmitters, amplification, perturbation.
 
-TPU-native counterpart of the reference ``optic/models`` package.
+Counterpart of the reference ``optic/models`` package.
 """
 
 from opticommpy_tpu.models import (  # noqa: F401

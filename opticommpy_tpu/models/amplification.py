@@ -1,6 +1,6 @@
 """Physical EDFA model: Giles rate/propagation equations with AGC/APC control.
 
-TPU-native-framework counterpart of reference ``optic/models/amplification.py``.
+Counterpart of reference ``optic/models/amplification.py``.
 This subsystem is *host-side by design* (SURVEY.md §7): it is a two-point
 boundary-value ODE (forward signal/ASE/pump vs backward pump/ASE) solved with
 ``scipy.integrate.solve_ivp`` relaxation plus a PID gain/power-control loop —

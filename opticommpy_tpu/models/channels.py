@@ -1,8 +1,8 @@
 """Fiber channel models: linear fiber, scalar SSFM, Manakov SSFM, AWGN.
 
-TPU-native counterpart of reference ``optic/models/channels.py`` (and its GPU
-twin ``modelsGPU.py``). The split-step loops are the hottest code in the
-framework; they are structured for XLA/TPU:
+Counterpart of reference ``optic/models/channels.py`` (and its GPU twin
+``modelsGPU.py``, whose SSFM runs on cuFFT). The split-step loops are the
+hottest code in the framework; they are structured for XLA:
 
 - both polarizations and all batched signals (WDM channels / power sweeps /
   Monte-Carlo seeds) are stacked on leading axes of a single (2, B, N) field
@@ -17,7 +17,7 @@ framework; they are structured for XLA/TPU:
   reference advances its seed per span, modelsGPU.py:259-260).
 
 The batched-leading-axis layout is exactly what ``vmap``/``shard_map`` need to
-scale WDM sweeps across chips (see opticommpy_tpu.parallel).
+scale WDM sweeps across devices (see opticommpy_tpu.parallel).
 """
 
 from functools import partial
@@ -31,6 +31,9 @@ from opticommpy_tpu.models.config import AWGNConfig, EDFAConfig, LinearFiberConf
 from opticommpy_tpu.models.devices import edfa
 from opticommpy_tpu.ops.noise import gaussian_complex_noise, gaussian_noise
 from opticommpy_tpu.ops.signal import sig_pow
+
+_fft = partial(jnp.fft.fft, axis=-1)
+_ifft = partial(jnp.fft.ifft, axis=-1)
 
 __all__ = [
     "linear_fiber_channel",
@@ -135,7 +138,6 @@ def ssfm(e_in, config: SSFMConfig, key=None):
 
     w = 2 * jnp.pi * config.Fs * jnp.fft.fftfreq(n)
     lin_arg = (-(alpha / 2) + 1j * (beta2 / 2) * w**2).astype(cdtype)
-    fft_fwd, fft_inv, lin_arg = _fft_pair(config, lin_arg)
     lin_half = jnp.exp(lin_arg * (hz / 2))
 
     amp_cfg = EDFAConfig(G=config.alpha * config.Lspan, NF=config.NF,
@@ -145,32 +147,32 @@ def ssfm(e_in, config: SSFMConfig, key=None):
 
     if config.fusedLinear:
         # merged half-steps (see _manakov_span): one fft+ifft pair per step,
-        # field carried in the (possibly permuted) frequency domain
+        # field carried in the frequency domain
         lin_full = jnp.exp(lin_arg * hz)
 
         def fstep(_, ef):
-            et = fft_inv(ef)
+            et = _ifft(ef)
             et = et * jnp.exp(1j * gamma_ * (et * jnp.conj(et)) * hz)
-            return fft_fwd(et) * lin_full
+            return _fft(et) * lin_full
 
         def span_steps(e):
-            ef = fft_fwd(e) * lin_half
+            ef = _fft(e) * lin_half
             ef = jax.lax.fori_loop(0, n_steps - 1, fstep, ef)
-            et = fft_inv(ef)
+            et = _ifft(ef)
             et = et * jnp.exp(1j * gamma_ * (et * jnp.conj(et)) * hz)
-            return fft_inv(fft_fwd(et) * lin_half)
+            return _ifft(_fft(et) * lin_half)
     else:
         def step(_, ef):
             # ef: frequency-domain field (B, N)
             ef = ef * lin_half
-            et = fft_inv(ef)
+            et = _ifft(ef)
             et = et * jnp.exp(1j * gamma_ * (et * jnp.conj(et)) * hz)
-            return fft_fwd(et) * lin_half
+            return _fft(et) * lin_half
 
         def span_steps(e):
-            ef = fft_fwd(e)
+            ef = _fft(e)
             ef = jax.lax.fori_loop(0, n_steps, step, ef)
-            return fft_inv(ef)
+            return jnp.fft.ifft(ef, axis=-1)
 
     def span(e, span_idx):
         e = span_steps(e)
@@ -226,27 +228,6 @@ def _manakov_step(e, pch, lin_op, hz_, cfg: SSFMConfig, nl_sign):
     return e_fd
 
 
-def _fft_pair(cfg: SSFMConfig, lin_arg):
-    """(fft, ifft, lin_arg) for the configured backend.
-
-    The 'matmul' backend transforms to a fixed permuted frequency order
-    (kernels/matmul_fft.py); ``lin_arg`` is permuted to match, which keeps
-    every frequency-diagonal operator application exact in that order.
-    """
-    if cfg.fftBackend == "matmul" and cfg.prec == "c64":
-        from opticommpy_tpu.kernels.matmul_fft import fwd_factory
-
-        try:
-            fwd, inv, kmap = fwd_factory(lin_arg.shape[-1],
-                                         precision=cfg.fftPrecision)
-        except ValueError:  # length does not factor into radices <= 128
-            pass
-        else:
-            return fwd, inv, lin_arg[jnp.asarray(kmap)]
-    return (partial(jnp.fft.fft, axis=-1), partial(jnp.fft.ifft, axis=-1),
-            lin_arg)
-
-
 def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
     """Propagate the (2, B, N) field through one span (z while-loop).
 
@@ -264,7 +245,7 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
         #
         # The linear operators are closure CONSTANTS, not scanned-over arrays:
         # a (n_steps, N) operator tensor is multi-GB at 2^20 samples and its
-        # per-step HBM reads halve throughput (measured on v5e). The uniform
+        # per-step HBM reads would dominate each step. The uniform
         # prefix of the schedule shares one operator; the <=2 trailing steps
         # around a partial final step are unrolled with their own operators.
         n_full = int(np.floor(span_len / cfg.hz))
@@ -282,24 +263,22 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
             gaps = np.concatenate([mid, [sizes[-1] / 2]])
             gamma_ = cfg.gamma
 
-            fft_fwd, fft_inv, lin_arg = _fft_pair(cfg, lin_arg)
-
             def fstep_with(ef, hz_, lin_gap):
-                et = fft_inv(ef)
+                et = jnp.fft.ifft(ef, axis=-1)
                 pch = jnp.sum((et * jnp.conj(et)).real, axis=0)
                 # trapezoid anchor = current power, so nlin_phase_rot
                 # (channels.py:471) reduces to (8/9)*gamma*pch here
                 rot = jnp.exp(
                     nl_sign * 1j * ((8 / 9) * gamma_ * hz_) * pch
                 ).astype(et.dtype)
-                return fft_fwd(et * rot) * lin_gap
+                return jnp.fft.fft(et * rot, axis=-1) * lin_gap
 
             n_uni = 0
             while (n_uni < len(sizes) and sizes[n_uni] == cfg.hz
                    and gaps[n_uni] == cfg.hz):
                 n_uni += 1
 
-            ef = fft_fwd(e) * jnp.exp(lin_arg * (sizes[0] / 2))
+            ef = jnp.fft.fft(e, axis=-1) * jnp.exp(lin_arg * (sizes[0] / 2))
             if n_uni:
                 lin_full = jnp.exp(lin_arg * cfg.hz)
 
@@ -309,7 +288,7 @@ def _manakov_span(e, lin_arg, span_len, cfg: SSFMConfig, nl_sign=1.0):
                 ef, _ = jax.lax.scan(fstep, ef, None, length=n_uni)
             for k in range(n_uni, len(sizes)):  # <= 2 trailing steps
                 ef = fstep_with(ef, sizes[k], jnp.exp(lin_arg * gaps[k]))
-            return fft_inv(ef)
+            return jnp.fft.ifft(ef, axis=-1)
 
         def step_with(e, hz_, lin_op):
             pch = jnp.sum(jnp.abs(e) ** 2, axis=0)

@@ -1,6 +1,6 @@
 """Frozen config dataclasses for the physical models.
 
-TPU-native replacement for the reference's mutable ``parameters`` attribute
+Replacement for the reference's mutable ``parameters`` attribute
 bag (``optic/utils.py:29``) + per-function ``getattr`` defaulting blocks
 (e.g. ``channels.py:304-322``): each model takes a frozen, hashable dataclass
 with the same field names and defaults as the reference, passed to jitted
@@ -171,7 +171,7 @@ class SSFMConfig:
     maxNlinPhaseRot: float = 2e-2
     # trapIters > 0 fixes the trapezoidal-correction count (no convergence
     # check): with nlprMethod=False this gives a fully static-control-flow
-    # solver (scan only — the fastest-compiling/fastest-running TPU path).
+    # solver (scan only — the fastest-compiling and fastest-running path).
     # trapIters = 0 iterates to `tol` like the reference (while_loop).
     trapIters: int = 0
     # fusedLinear merges adjacent linear half-steps across the span
@@ -181,18 +181,9 @@ class SSFMConfig:
     # channels.py:219-229, uses this anchor too). Requires nlprMethod=False
     # and trapIters=1.
     fusedLinear: bool = False
-    # FFT backend for the fused static path: 'xla' (exact jnp.fft) or
-    # 'matmul' (MXU mixed-radix matmul FFT in permuted frequency order,
-    # kernels/matmul_fft.py — ~1.5x faster per step on v5e at ~3e-7
-    # roundtrip error; falls back to 'xla' when the length won't factor).
-    fftBackend: str = "xla"
-    # matmul-FFT stage precision: 'highest' (f32 MXU passes, 3e-7/roundtrip)
-    # or 'high' (bf16x3, ~1.16x faster per step at 6e-5/roundtrip).
-    fftPrecision: str = "highest"
-    # solver precision: 'c64' (default — the TPU-native path) or 'c128'
-    # (requires jax_enable_x64; used for precision studies on CPU, matching
-    # the reference's `prec` parameter, channels.py:312). c128 forces the
-    # exact 'xla' FFT backend.
+    # solver precision: 'c64' (default) or 'c128' (requires
+    # jax_enable_x64; used for precision studies on CPU, matching the
+    # reference's `prec` parameter, channels.py:312).
     prec: str = "c64"
 
 

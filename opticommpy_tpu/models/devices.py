@@ -1,6 +1,6 @@
 """Optoelectronic device models: modulators, receivers, amplifiers, converters.
 
-TPU-native counterpart of reference ``optic/models/devices.py``. All device
+Counterpart of reference ``optic/models/devices.py``. All device
 transfer functions are pure, vectorized JAX; stochastic devices (photodiode,
 EDFA, laser, ADC) thread explicit PRNG keys. The reference's GPU/CPU firFilter
 dispatch (devices.py:45-53) disappears — one XLA path serves both.
@@ -83,7 +83,9 @@ def pbs(e, theta=0.0):
         [[jnp.cos(theta), -jnp.sin(theta)], [jnp.sin(theta), jnp.cos(theta)]],
         dtype=e.dtype,
     )
-    out = e @ rot
+    # HIGHEST: a default f32 matmul may run in TF32 on a GPU (~1e-3
+    # relative error on the optical field)
+    out = jnp.matmul(e, rot, precision=jax.lax.Precision.HIGHEST)
     return out[:, 0], out[:, 1]
 
 
@@ -174,7 +176,7 @@ def optical_hybrid_2x4(e_s, e_lo):
     )
     zeros = jnp.zeros_like(e_s)
     e_in = jnp.stack([e_s, zeros, zeros, e_lo])
-    return T @ e_in
+    return jnp.matmul(T, e_in, precision=jax.lax.Precision.HIGHEST)
 
 
 def coherent_receiver(

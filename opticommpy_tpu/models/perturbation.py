@@ -1,6 +1,6 @@
 """First-order intrachannel nonlinear perturbation model (NLIN).
 
-TPU-native counterpart of reference ``optic/models/perturbation.py`` (Tao et
+Counterpart of reference ``optic/models/perturbation.py`` (Tao et
 al. 2015 / da Silva et al. 2019):
 
 - :func:`calc_pert_coeff_matrix` ~ perturbation.py:29 — coefficient matrices
@@ -238,9 +238,7 @@ def _nlin_kernel_fft(x, y, cf, cx1, cx2, c_ispm):
     xp = jnp.pad(x, (L, L))
     yp = jnp.pad(y, (L, L))
     # shifted copies xs[j, t] = x[t + j - L] as indL STATIC SLICES, not a
-    # (indL, N) gather: XLA gathers run at ~0.6 GB/s on this TPU backend
-    # (measured round 5: the two gathers were 90 of the 126 ms call) while
-    # slices are pure streaming copies (~free)
+    # (indL, N) gather: slices are pure streaming copies
     xs = sliding_windows(xp, n_sym, 1, ind_l, taps_first=True)
     ys = sliding_windows(yp, n_sym, 1, ind_l, taps_first=True)
     # lag products u_m[t] = x[t] x*[t+m] + y[t] y*[t+m], rows j <-> m = j-L

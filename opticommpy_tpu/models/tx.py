@@ -1,6 +1,6 @@
 """Optical transmitters: WDM pol-mux coherent Tx and PAM IM-DD Tx.
 
-TPU-native counterpart of reference ``optic/models/tx.py``. The reference
+Counterpart of reference ``optic/models/tx.py``. The reference
 loops over channels and polarization modes in Python (tx.py:176,182); here the
 whole (nChannels, nPolModes) grid of signals is generated, pulse-shaped,
 modulated, frequency-shifted and summed as batched array ops — one traced
@@ -212,7 +212,7 @@ def pam_transmitter(key_or_seed, config: PAMTxConfig = PAMTxConfig()):
 def set_power_for_par_ssfm(sig, powers_dbm, verbose=False):
     """Scale polarization pairs of a mode-batched field to launch powers.
 
-    TPU-native counterpart of the GPU reference's parallel-power helper
+    Counterpart of the GPU reference's parallel-power helper
     (modelsGPU.py:775): column pairs (2k, 2k+1) of ``sig`` form the k-th
     polmux signal; each is scaled so the pair's total power is
     ``powers_dbm[k]`` (half per polarization). One vectorized rescale, no

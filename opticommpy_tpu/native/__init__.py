@@ -4,8 +4,8 @@ The reference's performance layer is Numba + CuPy (SURVEY.md §2.2); its
 host-side data loading (ALIST parity-check matrices, fec.py:811) is pure
 Python. Here the hot device path is JAX/XLA/Pallas, and the host-side
 loaders that feed it are native C++: compiled lazily with the system
-toolchain on first use, cached next to the source, with a pure-Python
-fallback so the package never hard-depends on a compiler.
+toolchain on first use, cached in the checkout's ``.native_build``, with a
+pure-Python fallback so the package never hard-depends on a compiler.
 """
 
 from __future__ import annotations
@@ -36,10 +36,9 @@ class _AlistData(ctypes.Structure):
 
 
 def _cache_dir() -> str:
-    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(
-        os.path.expanduser("~"), ".cache"
-    )
-    d = os.path.join(base, "opticommpy_tpu")
+    # the checkout's own build directory (listed in .gitignore): the
+    # package writes nothing outside its checkout
+    d = os.path.join(os.path.dirname(os.path.dirname(_SRC_DIR)), ".native_build")
     os.makedirs(d, exist_ok=True)
     return d
 
@@ -84,7 +83,7 @@ def _get_lib():
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    if os.environ.get("OPTICOMMPY_TPU_NO_NATIVE"):
+    if os.environ.get("OPTICOMMPY_NO_NATIVE"):
         return None
     path = _build_lib()
     if path is None:

@@ -1,6 +1,6 @@
-"""DSP primitives (TPU-native counterpart of reference ``optic/dsp/core.py``).
+"""DSP primitives (counterpart of reference ``optic/dsp/core.py``).
 
-Everything streaming runs as JAX/XLA ops (one code path for CPU and TPU,
+Everything streaming runs as JAX/XLA ops (one code path for every platform,
 replacing the reference's Numba/CuPy dual stack); filter *design* (tap
 generation) is host-side NumPy since it is offline setup producing constants.
 """

@@ -1,6 +1,6 @@
 """Filtering primitives: FFT FIR, overlap-save block convolution, tap design.
 
-TPU-native counterparts of reference ``optic/dsp/core.py``:
+Counterparts of reference ``optic/dsp/core.py``:
 
 - :func:`fir_filter`    ~ firFilter (core.py:87) / GPU twin (coreGPU.py:27).
   One XLA FFT-convolution path replaces the CPU-scipy / GPU-cupyx dispatch.

@@ -1,6 +1,6 @@
 """Electro-optic modulator transfer functions (MZM / PM math).
 
-TPU-native counterparts of reference ``optic/dsp/core.py:1075-1139``
+Counterparts of reference ``optic/dsp/core.py:1075-1139``
 (calcMZM / calcPM): pure elementwise complex math that XLA fuses on the VPU.
 """
 

@@ -1,6 +1,6 @@
 """Noise generation with explicit PRNG keys.
 
-TPU-native counterparts of reference ``optic/dsp/core.py:739-826``
+Counterparts of reference ``optic/dsp/core.py:739-826``
 (gaussianComplexNoise / gaussianNoise / phaseNoise). The reference seeds
 numpy's global RNG inside Numba kernels; here every draw threads an explicit
 ``jax.random`` key so runs are reproducible under jit and shardable across

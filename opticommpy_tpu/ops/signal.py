@@ -1,6 +1,6 @@
 """Signal conditioning primitives: power/normalization, resampling, sync.
 
-TPU-native counterparts of reference ``optic/dsp/core.py`` functions (cited
+Counterparts of reference ``optic/dsp/core.py`` functions (cited
 per-function below). Everything is vectorized across modes (no per-mode Python
 loops) and jit-friendly (static shapes, data-dependent *values* only).
 """
@@ -125,7 +125,7 @@ def decimate(x, sps_in, sps_out=1):
 
     For each mode, picks the sampling phase with maximum variance (a crude
     timing recovery), rolls the signal there, then downsamples. The
-    data-dependent phase pick is a dynamic roll under jit (fine on TPU).
+    data-dependent phase pick is a dynamic roll under jit.
     """
     x = jnp.asarray(x)
     squeeze = x.ndim == 1

@@ -1,6 +1,6 @@
 """Whitening-filter estimation: autocorrelation + Levinson-Durbin.
 
-TPU-native counterparts of reference ``optic/dsp/core.py:1142-1254``.
+Counterparts of reference ``optic/dsp/core.py:1142-1254``.
 The autocorrelation is one batched correlation instead of a double loop; the
 Levinson recursion (inherently sequential in filter order) runs as a
 ``lax.fori_loop`` carrying the coefficient vector with masked updates, since

@@ -1,7 +1,7 @@
 """Multi-chip scaling: device meshes, data-parallel SSFM, time-sharded filtering.
 
 See SURVEY.md §2.3 — the reference has no distributed layer; this package is
-its TPU-native replacement (jax.sharding + shard_map + ICI collectives).
+its replacement (jax.sharding + shard_map + collectives between devices).
 """
 
 from opticommpy_tpu.parallel.mesh import (  # noqa: F401

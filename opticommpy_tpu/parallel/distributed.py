@@ -4,7 +4,7 @@ The reference has no multi-node story (SURVEY.md §2.3). Here multi-host runs
 use the standard JAX distributed runtime: after :func:`init_distributed`,
 ``jax.devices()`` spans the whole slice/pod, the same `make_mesh` +
 `shard_map` code paths scale across hosts, and XLA routes intra-slice
-collectives over ICI and cross-host traffic over DCN automatically.
+collectives within a host and across hosts automatically.
 """
 
 import jax
@@ -15,8 +15,9 @@ __all__ = ["init_distributed", "is_multihost", "local_device_count"]
 def init_distributed(coordinator_address=None, num_processes=None, process_id=None):
     """Initialize the JAX distributed runtime (no-op for single-process runs).
 
-    On TPU pods the arguments are auto-detected from the environment; on
-    other setups pass them explicitly (see jax.distributed.initialize).
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id explicitly (see jax.distributed.initialize); nothing
+    in a plain GPU host tells JAX of a cluster.
     """
     try:
         jax.distributed.initialize(

@@ -1,20 +1,21 @@
 """Device-mesh helpers for multi-chip scaling.
 
 The reference has no distributed layer (SURVEY.md §2.3) — its scaling story is
-Numba threads + one GPU. Here scaling is expressed the TPU-native way: a
+Numba threads + one GPU. Here scaling is expressed the JAX way: a
 ``jax.sharding.Mesh`` with two logical axes,
 
 - ``"data"``: batch parallelism over WDM channels / launch powers /
   Monte-Carlo seeds (the reference's mode-batching, channels.py:364-373 and
   modelsGPU.py:775, promoted to a sharded axis),
 - ``"time"``: sequence parallelism over the signal's time axis for
-  overlap-save filtering, with K-1-sample halos exchanged over ICI
+  overlap-save filtering, with K-1-sample halos exchanged between devices
   (the reference's blockwise FFT decomposition, core.py:973, promoted to a
   sharded axis).
 
 Multi-host execution uses the same code path after
-``jax.distributed.initialize`` — XLA routes intra-slice collectives over ICI
-and cross-host traffic over DCN.
+``jax.distributed.initialize`` — XLA routes collectives within a host (NVLink
+on a GPU host) and across hosts. Every device reaches every other at the same
+rate on such a host, so mesh axes follow the algorithm alone.
 """
 
 import jax

@@ -1,6 +1,6 @@
 """Sharded compute paths: data-parallel SSFM, time-sharded filtering.
 
-TPU-native scaling of the two structures the reference already exposes
+Scaling of the two structures the reference already exposes
 (SURVEY.md §2.3):
 
 - **Data parallelism** (``shard_batch``/:func:`manakov_ssf_dp`): the SSFM
@@ -10,11 +10,13 @@ TPU-native scaling of the two structures the reference already exposes
 - **Sequence (time) parallelism** (:func:`sharded_fir` /
   :func:`sharded_edc`): the time axis is sharded over the mesh ``time``
   axis; each chip filters its chunk after receiving K-1 halo samples from
-  its neighbors via ``lax.ppermute`` (ICI). This is the distributed form of
+  its neighbors via ``lax.ppermute``. This is the distributed form of
   the reference's overlap-save decomposition (core.py:973).
 
 Both compose in one mesh: ``Mesh((data, time))``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +61,7 @@ def _halo_exchange(x_local, halo_left, halo_right, axis_name, axis=0,
 def sharded_fir(x, h, mesh, time_axis="time", mode_axis=None):
     """'same'-mode FIR filtering with the time axis sharded across chips.
 
-    Each chip receives (K-1)//2 halo samples from each neighbor over ICI and
+    Each chip receives (K-1)//2 halo samples from each neighbor and
     filters its local chunk — the distributed overlap-save of core.py:973.
 
     Parameters
@@ -144,7 +146,7 @@ def manakov_ssf_pp(e_in, config, key, mesh, stage_axis="stage",
 
     The link's spans are split into ``S`` contiguous stages (one per device
     along ``stage_axis``); the signal batch is split into ``M`` microbatches
-    that flow stage -> stage over ICI (``lax.ppermute``), GPipe-style. This is
+    that flow stage -> stage (``lax.ppermute``), GPipe-style. This is
     the pipeline decomposition SURVEY.md §2.3 derives from the reference's
     per-span loop (channels.py:380-456): stage = group of spans, field tensor
     flows chip -> chip.
@@ -304,7 +306,7 @@ def manakov_ssf_sp(e_in, config, key=None, mesh=None, time_axis="time",
     sync group. Each group of ``spans_per_sync`` spans runs entirely on-chip
     on the halo-padded block (local batched FFTs of length
     ``N/T + 2*halo``); between groups the halos are refreshed from the
-    neighbors' exact interiors over ICI (``lax.ppermute``, cyclic so the
+    neighbors' exact interiors (``lax.ppermute``, cyclic so the
     global periodic boundary of the reference's full-length FFT is
     preserved). This is the time-axis analog of :func:`sharded_fir`'s
     overlap-save decomposition applied to the propagation itself — the
@@ -318,14 +320,14 @@ def manakov_ssf_sp(e_in, config, key=None, mesh=None, time_axis="time",
     float32 round-off. Fixed-step configs (``nlprMethod=False``) match the
     single-chip step schedule exactly; with the adaptive rule each shard
     derives its step from its local max phase rotation (a per-step global
-    all-reduce would serialize ICI for no accuracy gain — documented delta).
+    all-reduce would serialize the devices for no accuracy gain — documented
+    delta).
 
     Parameters
     ----------
     e_in : (N, 2*k) interleaved-polarization field; N divisible by the mesh
         time-axis size (and by it times 2*halo granularity).
-    config : SSFMConfig (``fftBackend='matmul'`` falls back to the XLA FFT
-        when the padded local length does not factor into MXU radices).
+    config : SSFMConfig.
     key : PRNG key for ASE noise; folded per (span, time-shard) so shards
         draw independent noise (statistics match; streams differ from the
         single-chip path, as with ``manakov_ssf_pp``).
@@ -334,7 +336,7 @@ def manakov_ssf_sp(e_in, config, key=None, mesh=None, time_axis="time",
     halo : samples of neighbor context per side (default
         :func:`default_sp_halo`).
     spans_per_sync : spans propagated per halo refresh; larger values
-        amortize ICI at the cost of a wider halo.
+        amortize the halo exchange at the cost of a wider halo.
 
     Returns
     -------
@@ -433,11 +435,29 @@ def manakov_ssf_dp(e_in, config, key, mesh, data_axis="data"):
     ``max(phi_rot)`` becomes one scalar all-reduce per z-step (all chips take
     lockstep steps, matching the single-device semantics exactly).
     """
+    sharding, fn = _dp_program(config, mesh, data_axis)
+    return fn(jax.device_put(jnp.asarray(e_in), sharding), key)
+
+
+@functools.lru_cache(maxsize=32)
+def _dp_program(config, mesh, data_axis):
+    """The jitted data-parallel SSFM, built once per (config, mesh, axis):
+    a new ``jax.jit`` of a new lambda on every call would trace and compile
+    again every time.
+
+    With a fixed step and no ASE every signal propagates alone, so each
+    device runs the solver on its own signals (``shard_map``). Otherwise
+    (the adaptive step's batch-wide max, the ASE draw over the whole batch)
+    the global program keeps the single-device semantics exactly; XLA's
+    partitioner then replicates the solver's compute over the batch.
+    """
     sharding = shard_batch(mesh, data_axis)
-    e_in = jax.device_put(jnp.asarray(e_in), sharding)
-    fn = jax.jit(
-        lambda e, k: manakov_ssf(e, config, k),
-        in_shardings=(sharding, None),
-        out_shardings=sharding,
-    )
-    return fn(e_in, key)
+
+    def run(e, k):
+        return manakov_ssf(e, config, k)
+
+    if not config.nlprMethod and config.amp != "edfa":
+        run = jax.shard_map(run, mesh=mesh, in_specs=(P(None, data_axis), P()),
+                            out_specs=P(None, data_axis))
+    return sharding, jax.jit(run, in_shardings=(sharding, None),
+                             out_shardings=sharding)

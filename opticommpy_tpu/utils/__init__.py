@@ -1,6 +1,6 @@
 """General utilities: unit conversions, bit manipulation, config helpers.
 
-TPU-native counterpart of the reference ``optic/utils.py``.
+Counterpart of the reference ``optic/utils.py``.
 """
 
 from opticommpy_tpu.utils.bits import (

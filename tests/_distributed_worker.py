@@ -1,8 +1,8 @@
 """Worker for the 2-process jax.distributed test (spawned by test_parallel).
 
 Each process owns 2 virtual CPU devices; after init_distributed the global
-mesh spans 4 devices across the 2 processes (the DCN shape: process axis =
-cross-host, local axis = ICI). Verifies a cross-host collective and a
+mesh spans 4 devices across the 2 processes (process axis = cross-host,
+local axis = within a host). Verifies a cross-host collective and a
 global-array reduction, printing RESULT lines the parent asserts on.
 """
 
@@ -41,7 +41,7 @@ def main():
     devices = jax.devices()
     assert len(devices) == 4, len(devices)
 
-    # DCN-shaped mesh: hosts (processes) x local devices
+    # hosts (processes) x local devices
     mesh = Mesh(np.array(devices).reshape(2, 2), ("host", "local"))
 
     # global (8,) array sharded over both axes; each process materializes
@@ -59,7 +59,7 @@ def main():
     s = float(total(arr))
     print(f"RESULT sum {pid} {s}", flush=True)
 
-    # explicit shard_map collective across the host (DCN) axis
+    # explicit shard_map collective across the host axis
     from functools import partial
     from jax.experimental.shard_map import shard_map
 
@@ -74,7 +74,7 @@ def main():
 
     # end-to-end sharded simulation step across the 2 processes (VERDICT
     # r3 item 6): manakov_ssf_dp with the signal batch on the cross-host
-    # axis, then sharded_edc with the time axis on the local (ICI) axis —
+    # axis, then sharded_edc with the time axis on the local axis —
     # compared against the unsharded (replicated) single-device run.
     from opticommpy_tpu.dsp.equalization import EDCConfig, edc
     from opticommpy_tpu.models import SSFMConfig

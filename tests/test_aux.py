@@ -65,6 +65,7 @@ def test_enable_persistent_cache(tmp_path, monkeypatch):
     import jax
     from opticommpy_tpu.utils import enable_persistent_cache
 
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     p = enable_persistent_cache(str(tmp_path / "xla"), min_compile_secs=0.0)
     try:
         assert p == str(tmp_path / "xla")
@@ -89,3 +90,82 @@ def test_enable_persistent_cache(tmp_path, monkeypatch):
             _cc.reset_cache()
         except Exception:
             pass
+
+
+def test_cache_dir_follows_env_var(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins; without it the fixed checkout path
+    (never a home directory, temporary name, PID or time)."""
+    import os
+
+    from opticommpy_tpu.utils import compile_cache as cc
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/somewhere/cache")
+    assert cc.cache_dir() == "/somewhere/cache"
+    assert cc.cache_dir("/explicit") == "/somewhere/cache"
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cc.cache_dir() == os.path.join(root, ".jax_cache")
+    assert cc.cache_dir() == cc.DEFAULT_CACHE_DIR
+    assert cc.cache_dir("/explicit") == "/explicit"
+
+
+def test_enable_persistent_cache_sets_no_dir_under_env(monkeypatch):
+    import jax
+
+    from opticommpy_tpu.utils import enable_persistent_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/from/env")
+    try:
+        assert enable_persistent_cache(min_compile_secs=7.0) == "/from/env"
+        assert jax.config.jax_compilation_cache_dir == before
+    finally:
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def test_device_time_by_scope_attributes_a_cpu_trace(tmp_path):
+    """The trace reduction the smoke script uses, on a small recorded XLA:CPU
+    trace: every named scope's kernels are found and the shares add up."""
+    import jax
+    import jax.numpy as jnp
+
+    from opticommpy_tpu.utils.profiling import device_time_by_scope, trace
+
+    def f(x):
+        with jax.named_scope("first"):
+            y = jnp.sin(x) * 2.0
+        with jax.named_scope("second"):
+            return jnp.cumsum(y) * 3.0
+
+    x = jnp.ones(1 << 18)
+    compiled = jax.jit(f).lower(x).compile()
+    compiled(x).block_until_ready()
+    with trace(str(tmp_path)):
+        compiled(x).block_until_ready()
+    r = device_time_by_scope(str(tmp_path), [compiled.as_text()],
+                             {"first": "/first/", "second": "/second/"})
+    assert r["by_scope"]["first"] > 0 and r["by_scope"]["second"] > 0
+    assert 0.0 <= r["idle_share"] < 1.0
+    assert r["busy_s"] <= r["window_s"] + 1e-12
+    assert sum(r["by_scope"].values()) >= r["busy_s"] * 0.999
+    assert r["top"] and r["top"][0][1] > 0
+
+
+def test_hlo_op_scopes_follows_fusion_calls():
+    from opticommpy_tpu.utils.profiling import hlo_op_scopes
+
+    text = """HloModule m
+
+%fused_computation.1 (param_0: f32[4]) -> f32[4] {
+  %param_0 = f32[4]{0} parameter(0)
+  ROOT %sine.1 = f32[4]{0} sine(%param_0), metadata={op_name="jit(f)/bps/sin"}
+}
+
+ENTRY %main.2 (x: f32[4]) -> f32[4] {
+  %x = f32[4]{0} parameter(0)
+  ROOT %fusion.1 = f32[4]{0} fusion(%x), kind=kLoop, calls=%fused_computation.1, metadata={op_name="jit(f)/bps/sin"}
+}
+"""
+    sc = hlo_op_scopes(text)
+    assert "jit(f)/bps/sin" in sc["fusion.1"]
+    assert sc["x"] == set()

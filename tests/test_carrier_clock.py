@@ -127,25 +127,6 @@ def test_gardner_clock_recovery_fixes_sampling_offset():
     assert np.std(radii) < 0.25
 
 
-def test_gardner_pallas_matches_while_loop():
-    """The Pallas NCO kernel reproduces the while_loop sample-by-sample."""
-    rng = np.random.default_rng(7)
-    sps = 2
-    n_sym = 5000
-    symb = pnorm(modulate_gray(jnp.asarray(rng.integers(0, 2, size=2 * n_sym)), 4, "qam"))
-    pulse = jnp.asarray(pulse_shape("rrc", sps, 512, 0.2))
-    sig = fir_filter(pulse, upsample(symb, sps))
-    sig_off = clock_sampling_interp(sig, 1.0, 1.0 / (1 + 300e-6))
-    cfg = ClockRecoveryConfig(kp=2e-3, ki=1e-5, isNyquist=False)
-    rec_w, tv_w = gardner_clock_recovery(sig_off, cfg, return_timing=True)
-    rec_p, tv_p = gardner_clock_recovery(sig_off, cfg, return_timing=True,
-                                         backend="pallas")
-    nl = min(rec_w.shape[0], rec_p.shape[0])
-    assert abs(rec_w.shape[0] - rec_p.shape[0]) <= 2
-    assert np.max(np.abs(np.asarray(rec_w)[:nl] - np.asarray(rec_p)[:nl])) < 1e-5
-    assert np.max(np.abs(np.asarray(tv_w)[:nl] - np.asarray(tv_p)[:nl])) < 1e-5
-
-
 def test_gardner_static_out_prefix_and_jittable():
     """static_out=True (round 5): the fixed-length output's prefix is
     identical to the cropped dynamic path, and the call traces under an
@@ -172,27 +153,6 @@ def test_gardner_static_out_prefix_and_jittable():
                                                       static_out=True)))
 
     assert np.isfinite(float(chain(sig_off)))
-
-
-def test_gardner_pallas_two_modes_nyquist():
-    """Two polarizations, Nyquist TED, odd length: the wrapper paths."""
-    rng = np.random.default_rng(8)
-    sps = 2
-    n_sym = 3001
-    cols = []
-    for s in range(2):
-        symb = pnorm(modulate_gray(
-            jnp.asarray(rng.integers(0, 2, size=2 * n_sym)), 4, "qam"))
-        cols.append(fir_filter(jnp.asarray(pulse_shape("rrc", sps, 512, 0.2)),
-                               upsample(symb, sps)))
-    sig = jnp.stack(cols, axis=1)
-    sig_off = clock_sampling_interp(sig, 1.0, 1.0 / (1 - 150e-6))
-    cfg = ClockRecoveryConfig()  # isNyquist=True default
-    rec_w = gardner_clock_recovery(sig_off, cfg)
-    rec_p = gardner_clock_recovery(sig_off, cfg, backend="pallas")
-    assert rec_p.ndim == 2 and rec_p.shape[1] == 2
-    nl = min(rec_w.shape[0], rec_p.shape[0])
-    assert np.max(np.abs(np.asarray(rec_w)[:nl] - np.asarray(rec_p)[:nl])) < 1e-5
 
 
 def test_residual_linewidth_estimate():
@@ -253,7 +213,7 @@ def test_ffw_clock_recovery_estimates_and_corrects_ppm():
     spectral-line estimator recovers the clock offset to sub-ppm even at
     rolloff 0.01 (where the excess band is 1% of the spectrum), and the
     parallel cubic resampler retimes the signal. No recurrence anywhere
-    — the TPU-first counterpart of the Gardner NCO for the reference's
+    — the feedforward counterpart of the Gardner NCO for the reference's
     clockSamplingInterp impairment model (core.py:272)."""
     from opticommpy_tpu.dsp import FFWClockRecoveryConfig, ffw_clock_recovery
 

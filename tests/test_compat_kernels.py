@@ -4,7 +4,7 @@ coreAdaptEq, FFE/DFE/Volterra cores, FEC encoder/decoder kernels).
 These are host-side NumPy forms of the reference's Numba kernels
 (equalization.py:354-973, fec.py:254-683); the tests check the same
 physics-invariant properties the reference's own suite relies on, plus
-cross-consistency with the jitted TPU-path implementations.
+cross-consistency with the jitted device-path implementations.
 """
 
 import numpy as np

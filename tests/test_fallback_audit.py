@@ -1,112 +1,25 @@
-"""Primary-path execution audit (VERDICT r4 item 8).
+"""Primary-path execution audit.
 
-Every backend with a silent fallback gets one test asserting the PRIMARY
-path actually executes for its intended configuration — not just that
-outputs match. This is the class of test that would have caught the
-round-3 megakernel regression on day one: qc_decode_mega raised at trace
-time, a swallowed ValueError routed every call to the fused path, and
-"mega equals fused" comparisons passed tautologically for a full round.
+Every backend with a fallback gets one test asserting that the PRIMARY path
+actually executes for its intended configuration — not just that outputs
+match. A comparison of two paths passes tautologically when a silent
+fallback routes both to the same code.
 
 Mechanism: patch the primary entry point with a wrapping mock (the call
 passes through; only the count is recorded) and drive the public API.
-Imports inside the routed functions resolve from the module dict at trace
-time, so the patch must be active during the FIRST call of a fresh config
-(lru_cached/jitted decoders are keyed on their static args — each test
-uses a parameter combination no other test uses).
 """
 
 from unittest import mock
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 
 
-def test_mega_backend_actually_runs_megakernel():
-    """backend='mega' with an aligned, in-budget config must reach
-    qc_decode_mega (round-3 regression class)."""
-    import opticommpy_tpu.kernels.qc_mega as qc_mega
-    from opticommpy_tpu.comm import fec_qc
-
-    # B=128: pick_bt pads to the 128-lane tile the megakernel requires.
-    # A SMALLER batch (e.g. the old B=8 choice) silently routes to the
-    # fused path via the round-4 bt%128 precondition — which is exactly
-    # how test_qc_megakernel_matches_xla_path spent part of round 4
-    # comparing fused-vs-xla under a 'mega' label (caught by this audit,
-    # round 5). Mega configs must be driven at lane-aligned batches.
-    # Further round-5 finding while writing this audit: the serving
-    # config is bf16-ONLY — f32 messages at bt=128 put the resident state
-    # at ~107 MB, over the ~100 MB budget, so 'mega' with f32 ALWAYS runs
-    # the fused fallback for n=64800 codes (asserted below).
-    rng = np.random.default_rng(21)
-    llrs = jnp.asarray(
-        (2.0 + rng.normal(scale=1.0, size=(64800, 128))).astype(np.float32))
-    with mock.patch.object(qc_mega, "qc_decode_mega",
-                           wraps=qc_mega.qc_decode_mega) as spy:
-        dec = fec_qc.make_qc_decoder(64800, "4/5", 2, "MSA", "bf16",
-                                     backend="mega")
-        out, _, _ = dec(llrs)
-        assert spy.call_count >= 1, "megakernel never executed"
-    assert np.isfinite(np.asarray(out)).all()
-
-    from opticommpy_tpu.kernels.qc_mega import (MEGA_VMEM_BUDGET,
-                                                mega_state_bytes)
-
-    # document the budget boundary: f32 at the serving tile is over it
-    assert mega_state_bytes(144, 36, 14, 128, jnp.float32) > MEGA_VMEM_BUDGET
-    assert mega_state_bytes(144, 36, 14, 128,
-                            jnp.bfloat16) <= MEGA_VMEM_BUDGET
-
-
-def test_mega_small_batch_pads_and_budget_routes_to_fused():
-    """Round-5 behavior: a small batch is PADDED to the 128-lane tile
-    (lane padding makes bt=128 cost the same as bt=8, and the +LLR pad
-    columns freeze at the first parity fold), so bf16 B=8 must RUN the
-    megakernel; f32 at bt=128 exceeds the ~100 MB VMEM budget and must
-    run the fused multi-kernel fallback — never qc_decode_mega."""
-    import opticommpy_tpu.kernels.qc_mega as qc_mega
-    import opticommpy_tpu.kernels.qc_pallas as qc_pallas
-    from opticommpy_tpu.comm import fec_qc
-
-    rng = np.random.default_rng(22)
-    B = 8
-    llrs = jnp.asarray(
-        (2.0 + rng.normal(scale=1.0, size=(64800, B))).astype(np.float32))
-    with mock.patch.object(qc_mega, "qc_decode_mega",
-                           wraps=qc_mega.qc_decode_mega) as spy_mega:
-        dec = fec_qc.make_qc_decoder(64800, "4/5", 3, "MSA", "bf16",
-                                     backend="mega", early_exit=False)
-        out_b, _, _ = dec(llrs)
-        assert spy_mega.call_count >= 1, (
-            "padded small batch never reached the megakernel")
-    assert np.isfinite(np.asarray(out_b, np.float32)).all()
-
-    with mock.patch.object(qc_mega, "qc_decode_mega",
-                           wraps=qc_mega.qc_decode_mega) as spy_mega, \
-         mock.patch.object(qc_pallas, "check_column_update",
-                           wraps=qc_pallas.check_column_update) as spy_fused:
-        dec = fec_qc.make_qc_decoder(64800, "4/5", 3, "MSA", "f32",
-                                     backend="mega", early_exit=False)
-        out, _, _ = dec(llrs)
-        assert spy_mega.call_count == 0, "over-budget f32 reached megakernel"
-        assert spy_fused.call_count >= 1, "fused fallback never executed"
-    assert np.isfinite(np.asarray(out)).all()
-
-
-def test_pallas_training_stages_run_on_kernels():
-    """mimo_adapt_equalizer(backend='pallas') with a supported multi-stage
-    schedule must run EVERY stage on the VMEM kernels — da-rde/dd-lms via
-    _mimo_eq_run_windows, rls via _rls_run_windows — and never silently
-    drop to the scan."""
-    import opticommpy_tpu.kernels.mimo_pallas as mimo_pallas
-    import opticommpy_tpu.kernels.rls_pallas as rls_pallas
+def _training_signal(n_sym=1024, sps=2, seed=23):
     from opticommpy_tpu.comm.modulation import gray_mapping
-    from opticommpy_tpu.dsp.equalization import (MIMOEqualizerConfig,
-                                                 mimo_adapt_equalizer)
 
-    rng = np.random.default_rng(23)
-    n_sym, sps = 1024, 2
+    rng = np.random.default_rng(seed)
     const = gray_mapping(16, "qam")
     const = const / np.sqrt(np.mean(np.abs(const) ** 2))
     sym = const[rng.integers(0, 16, size=(n_sym, 2))]
@@ -115,47 +28,76 @@ def test_pallas_training_stages_run_on_kernels():
     sig = jnp.asarray((x + 0.01 * (rng.normal(size=x.shape)
                                    + 1j * rng.normal(size=x.shape))
                        ).astype(np.complex64))
-    ref = jnp.asarray(sym.astype(np.complex64))
+    return sig, jnp.asarray(sym.astype(np.complex64))
 
-    cfg = MIMOEqualizerConfig(nTaps=7, SpS=sps, mu=(5e-3, 1e-3),
+
+def test_pallas_training_stages_run_on_kernels():
+    """mimo_adapt_equalizer(backend='pallas') launches the Triton-route
+    kernel once per kernel stage and pass — da-rde x numIter then dd-lms —
+    and never silently drops to the scan; an rls stage (no kernel rule)
+    launches nothing."""
+    import opticommpy_tpu.kernels.mimo_pallas as mimo_pallas
+    from opticommpy_tpu.dsp.equalization import (MIMOEqualizerConfig,
+                                                 mimo_adapt_equalizer)
+
+    sig, ref = _training_signal()
+    cfg = MIMOEqualizerConfig(nTaps=7, SpS=2, mu=(5e-3, 1e-3),
                               alg=("da-rde", "dd-lms"), L=(512, 512),
-                              M=16, numIter=1, backend="pallas")
-    with mock.patch.object(mimo_pallas, "_mimo_eq_run_windows",
-                           wraps=mimo_pallas._mimo_eq_run_windows) as spy:
+                              M=16, numIter=2, backend="pallas",
+                              interpret=True)
+    with mock.patch.object(mimo_pallas, "_stage_call",
+                           wraps=mimo_pallas._stage_call) as spy:
         y = mimo_adapt_equalizer(sig, cfg, symb_ref=ref)
-        assert spy.call_count >= 2, (
-            f"only {spy.call_count} of 2 stages ran on the kernel")
+        assert spy.call_count == 3, (
+            f"{spy.call_count} kernel launches, expected 3 (2 + 1 passes)")
+        assert {c.kwargs["alg"] for c in spy.call_args_list} == {
+            "da-rde", "lms"}
     assert np.isfinite(np.asarray(y)).all()
 
-    cfg_rls = MIMOEqualizerConfig(nTaps=7, SpS=sps, mu=(1e-3,),
-                                  alg=("rls",), L=(n_sym,), M=16,
-                                  numIter=1, backend="pallas")
-    with mock.patch.object(rls_pallas, "_rls_run_windows",
-                           wraps=rls_pallas._rls_run_windows) as spy_rls:
-        y = mimo_adapt_equalizer(sig, cfg_rls, symb_ref=ref)
-        assert spy_rls.call_count >= 1, "rls stage never reached the kernel"
-    assert np.isfinite(np.asarray(y)).all()
+    cfg_rls = MIMOEqualizerConfig(nTaps=7, SpS=2, mu=(1e-3,), alg=("rls",),
+                                  M=16, backend="pallas", interpret=True)
+    with mock.patch.object(mimo_pallas, "_stage_call",
+                           wraps=mimo_pallas._stage_call) as spy:
+        mimo_adapt_equalizer(sig, cfg_rls, symb_ref=ref)
+        assert spy.call_count == 0
 
 
-def test_matmul_fft_backend_actually_used_and_fallback_scoped():
-    """SSFMConfig(fftBackend='matmul', prec='c64') must route the
-    propagation through fwd_factory; only a transform length that does not
-    factor into radices <= 128 may fall back to jnp.fft."""
-    import opticommpy_tpu.kernels.matmul_fft as matmul_fft
-    from opticommpy_tpu.models.channels import _fft_pair
-    from opticommpy_tpu.models import SSFMConfig
+def test_batch_trainer_runs_one_launch_per_stage():
+    """mimo_adapt_equalizer_batch puts all B signals of a kernel stage into
+    ONE launch (grid over signals x output modes), not B launches."""
+    import opticommpy_tpu.kernels.mimo_pallas as mimo_pallas
+    from opticommpy_tpu.dsp.equalization import (MIMOEqualizerConfig,
+                                                 mimo_adapt_equalizer_batch)
 
-    cfg = SSFMConfig(Ltotal=1, Lspan=1, hz=0.5, Fs=64e9,
-                     fusedLinear=True, fftBackend="matmul")
-    lin_arg = jnp.zeros(2**12, jnp.complex64)
-    with mock.patch.object(matmul_fft, "fwd_factory",
-                           wraps=matmul_fft.fwd_factory) as spy:
-        fwd, inv, _ = _fft_pair(cfg, lin_arg)
-        assert spy.call_count == 1, "matmul FFT backend never consulted"
-        # the returned transforms are the factory's, not jnp.fft partials
-        assert getattr(fwd, "func", None) is not jnp.fft.fft
+    sig, ref = _training_signal(n_sym=600, seed=24)
+    cfg = MIMOEqualizerConfig(nTaps=7, SpS=2, mu=(5e-3, 1e-3),
+                              alg=("da-rde", "dd-lms"), L=(300, 300),
+                              M=16, numIter=1, backend="pallas",
+                              interpret=True)
+    with mock.patch.object(mimo_pallas, "_stage_call",
+                           wraps=mimo_pallas._stage_call) as spy:
+        y = mimo_adapt_equalizer_batch(jnp.stack([sig] * 3), cfg,
+                                       symb_ref=jnp.stack([ref] * 3))
+        assert spy.call_count == 2
+        assert all(c.args[2].shape[0] == 3 for c in spy.call_args_list)
+    assert y.shape == (3, 600, 2)
 
-    # prime length: documented, scoped fallback to the exact XLA FFT
-    lin_prime = jnp.zeros(3989, jnp.complex64)
-    fwd_p, inv_p, _ = _fft_pair(cfg, lin_prime)
-    assert getattr(fwd_p, "func", None) is jnp.fft.fft
+
+def test_auto_backend_routes_by_platform(monkeypatch):
+    """backend='auto' takes the kernel exactly where the platform table
+    says 'kernel' (a GPU) and the scan elsewhere; stages without a kernel
+    rule always take the scan."""
+    from opticommpy_tpu import backend
+    from opticommpy_tpu.dsp import equalization as eq
+
+    auto = eq.MIMOEqualizerConfig(backend="auto")
+    assert not eq._use_kernel(auto, "dd-lms")  # this suite runs on the CPU
+    monkeypatch.setattr(backend, "implementation", lambda platform=None:
+                        backend.IMPLEMENTATIONS["gpu"])
+    assert eq._use_kernel(auto, "dd-lms")
+    assert eq._use_kernel(auto, "da-rde")
+    assert not eq._use_kernel(auto, "rls")
+    assert not eq._use_kernel(eq.MIMOEqualizerConfig(backend="auto",
+                                                     blockUpdate=8), "nlms")
+    assert not eq._use_kernel(eq.MIMOEqualizerConfig(backend="scan"),
+                              "dd-lms")

@@ -429,101 +429,12 @@ def test_qc_tables_cover_all_dvbs2_rates():
         assert qc == ref, f"rate {R}: QC edge set mismatch"
 
 
-@pytest.mark.slow
-def test_qc_fused_matches_xla_path():
-    """The fully-fused Pallas QC decoder (kernels/qc_pallas.py, interpret
-    mode on CPU) reproduces the XLA roll decoder: same hard decisions,
-    iteration counts and failure flags; totals equal to f32 sum-order
-    tolerance. Covers both message dtypes and a second rate so both the
-    low-S and high-S check-kernel shapes run."""
-    import jax.numpy as jnp
-
-    from opticommpy_tpu.comm import fec_qc
-
-    rng = np.random.default_rng(3)
-    for R, mdt, B in (("9/10", "f32", 4), ("9/10", "bf16", 4),
-                      ("1/4", "f32", 4)):
-        llrs = jnp.asarray(
-            (1.2 + rng.normal(scale=1.6, size=(64800, B))).astype(
-                np.float32))
-        ref = fec_qc.make_qc_decoder(64800, R, 3, "MSA", mdt, backend="xla")
-        fus = fec_qc.make_qc_decoder(64800, R, 3, "MSA", mdt,
-                                     backend="fused")
-        o1, i1, f1 = ref(llrs)
-        o2, i2, f2 = fus(llrs)
-        o1 = np.asarray(o1, np.float32)
-        o2 = np.asarray(o2, np.float32)
-        assert np.array_equal(np.asarray(i1), np.asarray(i2)), R
-        assert np.array_equal(np.asarray(f1), np.asarray(f2)), R
-        assert not (np.signbit(o1) != np.signbit(o2)).any(), R
-        assert np.abs(o1 - o2).max() / np.abs(o1).max() < 1e-5, (R, mdt)
-
-@pytest.mark.slow
-def test_qc_megakernel_matches_xla_path():
-    """The resident-totals megakernel (kernels/qc_mega.py, whole decode in
-    one Pallas program) reproduces the XLA roll decoder: same decisions,
-    iteration counts and failure flags; totals to f32 sum-order tolerance.
-    Also checked: building the decoder INSIDE an outer jit trace (the
-    coded-receiver composition) neither fails nor leaks tracers through
-    the lru_cache."""
-    import jax
-    import jax.numpy as jnp
-
-    from opticommpy_tpu.comm import fec_qc
-
-    rng = np.random.default_rng(13)
-    # B=128: the megakernel requires a 128-lane-aligned batch tile; any
-    # smaller batch silently routes to the fused path (bt%128 precheck,
-    # round 4) and this test would compare fused-vs-xla under a 'mega'
-    # label — which it DID for all of round 4 with the old B=8 workload
-    # (caught by tests/test_fallback_audit.py, round 5).
-    # Tolerances: the REAL megakernel accumulates totals as sequential
-    # VMEM adds and stores bf16 messages with its own rounding points, so
-    # bf16 totals sit ~1e-3 relative from the XLA tree-reduction path
-    # (decisions/signs/iterations exact — asserted below). f32 at bt=128
-    # exceeds the ~100 MB VMEM budget (mega_state_bytes: R4/5 needs
-    # ~107 MB) and exercises the documented fused fallback, which matches
-    # XLA to f32 sum-order (1e-5).
-    llrs = jnp.asarray(
-        (1.2 + rng.normal(scale=1.6, size=(64800, 128))).astype(np.float32))
-    for mdt, tol in (("bf16", 2e-3), ("f32", 1e-5)):
-        ref = fec_qc.make_qc_decoder(64800, "4/5", 3, "MSA", mdt,
-                                     backend="xla")
-        meg = fec_qc.make_qc_decoder(64800, "4/5", 3, "MSA", mdt,
-                                     backend="mega")
-        o1, i1, f1 = ref(llrs)
-        o2, i2, f2 = meg(llrs)
-        o1 = np.asarray(o1, np.float32)
-        o2 = np.asarray(o2, np.float32)
-        assert np.array_equal(np.asarray(i1), np.asarray(i2)), mdt
-        assert np.array_equal(np.asarray(f1), np.asarray(f2)), mdt
-        assert not (np.signbit(o1) != np.signbit(o2)).any(), mdt
-        assert np.abs(o1 - o2).max() / np.abs(o1).max() < tol, mdt
-
-    # nested-in-jit construction + reuse of the cached decoder standalone
-    @jax.jit
-    def outer(llr):
-        dec = fec_qc.make_qc_decoder(64800, "4/5", 2, "NMSA", "bf16",
-                                     backend="fused")
-        return jnp.mean(dec(llr)[0])
-
-    a = float(outer(llrs))
-    dec = fec_qc.make_qc_decoder(64800, "4/5", 2, "NMSA", "bf16",
-                                 backend="fused")
-    b = float(jnp.mean(dec(llrs)[0]))
-    assert abs(a - b) < 1e-5 * max(1.0, abs(a))
-
-
-def test_qc_megakernel_early_exit_identical():
-    """The megakernel's per-chunk early-exit grid skip (round 5) returns
-    BIT-identical totals, decisions, iteration counts and failure flags to
-    the fixed-grid megakernel on a converging workload — the skip must be
-    unobservable except in wall time (reference break-on-parity serving
-    semantics, fec.py:494-497). The workload converges in ~10-12 of the 20
-    iterations, so the skip path genuinely executes. B=128 drives the REAL
-    megakernel (smaller batches route to fused via the bt%128 precheck);
-    iteration budget 12 keeps the interpret-mode grid affordable while the
-    slowest codeword still converges inside it."""
+def test_qc_early_exit_identical_nmsa_bf16():
+    """The XLA QC decoder's early exit (a while_loop over the batch)
+    returns BIT-identical totals, decisions, iteration counts and failure
+    flags to the fixed-iteration scan for NMSA with bf16 messages, on a
+    workload that converges inside the budget, so the exit really fires
+    (reference break-on-parity serving semantics, fec.py:494-497)."""
     from opticommpy_tpu.comm import fec_qc
     from opticommpy_tpu.comm.fec import encode_ldpc, standard_ldpc
 
@@ -531,222 +442,41 @@ def test_qc_megakernel_early_exit_identical():
     _, edges = standard_ldpc("DVBS2", n, R)
     rng = np.random.default_rng(7)
     sigma = np.sqrt(0.5 * 10 ** (-2.7 / 10))
-    bits = rng.integers(0, 2, size=(k, 128)).astype(np.int8)
+    bits = rng.integers(0, 2, size=(k, 8)).astype(np.int8)
     cw = np.asarray(encode_ldpc(jnp.asarray(bits), edges=edges))
     y = (1 - 2.0 * cw) + sigma * rng.normal(size=cw.shape)
     llr = jnp.asarray((2 * y / sigma**2).astype(np.float32))
 
-    fixed = fec_qc.make_qc_decoder(n, R, 12, "NMSA", "bf16", backend="mega")
-    ee = fec_qc.make_qc_decoder(n, R, 12, "NMSA", "bf16", early_exit=True,
-                                backend="mega")
+    fixed = fec_qc.make_qc_decoder(n, R, 12, "NMSA", "bf16")
+    ee = fec_qc.make_qc_decoder(n, R, 12, "NMSA", "bf16", early_exit=True)
     o1, i1, f1 = fixed(llr)
     o2, i2, f2 = ee(llr)
     assert np.array_equal(np.asarray(i1), np.asarray(i2))
-    assert 3 < int(np.asarray(i1).max()) < 12  # skip actually triggered
+    assert 3 < int(np.asarray(i1).max()) < 12  # the exit actually fired
     assert np.array_equal(np.asarray(f1), np.asarray(f2))
     assert np.array_equal(np.asarray(o1, np.float32),
                           np.asarray(o2, np.float32))
     assert ((np.asarray(o1, np.float32) < 0).astype(np.int8) == cw).all()
 
 
-def _layered_bp_oracle(tb, llrs, max_iter, alpha=None):
-    """Plain-numpy serial-C (layered) QC BP with the megakernel's exact
-    semantics and op order: per check column, pass 1 reads the current
-    in-place totals (X = rolled T - old M, min/parity accumulators over
-    all S+2 slots), pass 2 writes leave-one-out messages and scatters the
-    DELTAS back; vote folds per column; done/freeze replicate the
-    kernel's layered bookkeeping (frozen = done_before | last; K =
-    max_iter + 1 sweeps). f32 messages -> bit-exact comparison target."""
-    Zl = 360
-    k_, m_, q, G, S = tb["k"], tb["m"], tb["q"], tb["G"], tb["S"]
-    pos_tab = np.ascontiguousarray(tb["pos_of_g"][tb["g_tab"]].T)  # (S, q)
-    sh_tab = np.ascontiguousarray(tb["s_tab"].T % Zl)
-    B = llrs.shape[1]
-    T = np.ascontiguousarray(
-        llrs[:k_].reshape(G, Zl, B)[tb["order_rows"]].astype(np.float32))
-    Tp = np.ascontiguousarray(
-        llrs[k_:].reshape(Zl, q, B).transpose(1, 0, 2).astype(np.float32))
-    D = S + 2
-    M = np.zeros((q, D, Zl, B), np.float32)
-    done = np.zeros(B, bool)
-    fT = np.zeros_like(T)
-    fTp = np.zeros_like(Tp)
-    n_iters = np.zeros(B, np.int32)
-    K = max_iter + 1
-    for kk in range(K):
-        vote = np.ones(B, bool)
-        for j in range(q):
-            X = np.empty((D, Zl, B), np.float32)
-            tot_neg = np.empty((D, Zl, B), bool)
-            for sl in range(S):
-                tot = np.roll(T[pos_tab[sl, j]], sh_tab[sl, j], axis=0)
-                X[sl] = tot - M[j, sl]
-                tot_neg[sl] = tot < 0
-            tot = Tp[j]
-            X[S] = tot - M[j, S]
-            tot_neg[S] = tot < 0
-            jm1 = q - 1 if j == 0 else j - 1
-            tot = np.roll(Tp[jm1], 1 if j == 0 else 0, axis=0)
-            X[S + 1] = tot - M[j, S + 1]
-            tot_neg[S + 1] = tot < 0
-            mask0 = np.zeros((Zl, B), bool)
-            if j == 0:
-                mask0[0] = True
-            X[S + 1][mask0] = np.inf
-            tot_neg[S + 1][mask0] = False
-            mag = np.abs(X)
-            order = np.sort(mag, axis=0)
-            m1, m2 = order[0], order[1]
-            parx = (X < 0).sum(axis=0) % 2
-            partot = tot_neg.sum(axis=0) % 2
-            vote &= np.all(partot == 0, axis=0)
-            for sl in range(D):
-                om = np.where(mag[sl] == m1, m2, m1)
-                if alpha is not None:
-                    om = np.float32(alpha) * om
-                flip = (parx ^ (X[sl] < 0)) % 2 == 1
-                new = np.where(flip, -om, om).astype(np.float32)
-                if sl < S:
-                    delta = new - M[j, sl]
-                    T[pos_tab[sl, j]] += np.roll(delta, -int(sh_tab[sl, j]),
-                                                 axis=0)
-                elif sl == S:
-                    Tp[j] += new - M[j, sl]
-                else:
-                    d = np.where(mask0, 0.0, new - M[j, sl]).astype(
-                        np.float32)
-                    if j == 0:
-                        d = np.roll(d, -1, axis=0)
-                    Tp[jm1] += d
-                M[j, sl] = new
-        ok = vote & (kk > 0)
-        done_before = done.copy()
-        done = done | ok
-        last = kk == K - 1
-        live = ~done & ~last
-        n_iters += live
-        # a latch on the final sweep also writes the end-of-sweep totals
-        # (kernel parity; see qc_mega layered freeze comment)
-        frozen = done_before | (last & ~ok)
-        k0 = kk == 0
-        fT = np.where(frozen[None, None, :], T if k0 else fT, T)
-        fTp = np.where(frozen[None, None, :], Tp if k0 else fTp, Tp)
-    out_info = fT[tb["pos_of_g"]].reshape(G * Zl, B)
-    out_p = fTp.transpose(1, 0, 2).reshape(m_, B)
-    return np.concatenate([out_info, out_p]), n_iters, ~done
-
-
-def test_qc_mega_layered_matches_numpy_oracle():
-    """The layered (serial-C) megakernel schedule (round 5) is pinned
-    against an independent plain-numpy implementation of the exact same
-    schedule: f32 messages, same column/slot op order -> identical
-    totals, iteration counts and failure flags."""
+def test_qc_decoder_columns_are_independent():
+    """Any batch size decodes, and each codeword's result does not depend
+    on its neighbours: a batch of 3 == each column decoded alone."""
     from opticommpy_tpu.comm import fec_qc
 
-    n, R = 64800, "4/5"
-    tb = fec_qc.qc_tables(R, n)
-    rng = np.random.default_rng(31)
-    llrs_np = (1.4 + rng.normal(scale=1.5, size=(n, 128))).astype(np.float32)
-    dec = fec_qc.make_qc_decoder(n, R, 3, "NMSA", "f32", backend="mega",
-                                 schedule="layered")
-    out, iters, fail = dec(jnp.asarray(llrs_np))
-    out_o, iters_o, fail_o = _layered_bp_oracle(tb, llrs_np, 3, alpha=0.75)
-    assert np.array_equal(np.asarray(iters), iters_o)
-    assert np.array_equal(np.asarray(fail), fail_o)
-    got = np.asarray(out, np.float32)
-    # sequential f32 adds in both, same order -> exact
-    assert np.array_equal(got, out_o), np.abs(got - out_o).max()
-
-
-@pytest.mark.slow
-def test_qc_mega_layered_converges_faster_and_decodes():
-    """Layered (serial-C) schedule behavioral pin: on real encoded
-    codewords at Es/N0 = 2.3 dB it decodes error-free in ~half the sweeps
-    flooding needs (hardware round-5: mean 10.6 -> 6.0, matching the
-    round-3 convergence study's 1.76-1.83x), and at the 20-iteration
-    budget its FER at the iteration-limited 1.7 dB point is far BELOW
-    flooding's (hardware: 0.016 vs 0.990 on 192 frames — at 20 sweeps the
-    flooding curve is iteration-limited there, and layered ~= flooding at
-    twice the iterations). Schedules differ, so decisions are compared to
-    the TRUE codewords, not to each other."""
-    from opticommpy_tpu.comm import fec_qc
-    from opticommpy_tpu.comm.fec import encode_ldpc, standard_ldpc
-
-    n, R, k = 64800, "4/5", 51840
-    _, edges = standard_ldpc("DVBS2", n, R)
-    dec_f = fec_qc.make_qc_decoder(n, R, 20, "NMSA", "bf16",
-                                   early_exit=True, backend="mega")
-    dec_l = fec_qc.make_qc_decoder(n, R, 20, "NMSA", "bf16",
-                                   early_exit=True, backend="mega",
-                                   schedule="layered")
-    rng = np.random.default_rng(17)
-    B = 32  # pads to the 128-lane mega tile
-    sigma = np.sqrt(0.5 * 10 ** (-2.3 / 10))
-    bits = rng.integers(0, 2, size=(k, B)).astype(np.int8)
-    cw = np.asarray(encode_ldpc(jnp.asarray(bits), edges=edges))
-    y = (1 - 2.0 * cw) + sigma * rng.normal(size=cw.shape)
-    llr = jnp.asarray((2 * y / sigma**2).astype(np.float32))
-    o_f, it_f, fail_f = dec_f(llr)
-    o_l, it_l, fail_l = dec_l(llr)
-    assert not np.asarray(fail_f).any() and not np.asarray(fail_l).any()
-    assert ((np.asarray(o_f, np.float32) < 0).astype(np.int8) == cw).all()
-    assert ((np.asarray(o_l, np.float32) < 0).astype(np.int8) == cw).all()
-    m_f = float(np.asarray(it_f, np.float32).mean())
-    m_l = float(np.asarray(it_l, np.float32).mean())
-    assert m_l < 0.75 * m_f, (m_l, m_f)  # ~0.55-0.6 measured
-
-
-def test_qc_megakernel_rejects_unaligned_batch_tile():
-    """qc_decode_mega refuses a batch tile not lane-aligned to 128: its
-    manual DMAs slice the lane axis at bt, which Mosaic only compiles for
-    multiples of the (., 128) tiling. Interpret mode cannot see this (the
-    B=64 coded receiver crashed on v5e while CPU tests passed), so the
-    precondition is checked explicitly and fec_qc routes such batches to
-    the multi-kernel fused path."""
-    import jax.numpy as jnp
-    import pytest as _pytest
-
-    from opticommpy_tpu.kernels.qc_mega import MegaBudgetError, qc_decode_mega
-
-    llr_i = jnp.zeros((1, 4 * 360, 64), jnp.float32)
-    llr_p = jnp.zeros((1, 2 * 360, 64), jnp.float32)
-    pos = np.zeros((3, 2), np.int32)
-    sh = np.zeros((3, 2), np.int32)
-    with _pytest.raises(MegaBudgetError, match="lane-aligned"):
-        qc_decode_mega(llr_i, llr_p, pos, sh, sh, 4, 2, interpret=True)
-
-@pytest.mark.slow
-def test_qc_fused_corrects_errors_and_early_exit():
-    """Fused decoder end-to-end: corrects AWGN errors on a real DVB-S2
-    codeword batch (odd batch exercises the pad-to-8 path) and the
-    early-exit while_loop returns identical outputs to the scan."""
-    import jax.numpy as jnp
-
-    from opticommpy_tpu.comm import fec_qc
-    from opticommpy_tpu.comm.fec import standard_ldpc
-
-    _, edges = standard_ldpc(mode="DVBS2", n=64800, R="4/5")
-    k = 64800 - 12960
+    n, R = 64800, "9/10"
     rng = np.random.default_rng(5)
-    bits = rng.integers(0, 2, size=(k, 3)).astype(np.int8)
-    cw = np.asarray(encode_ldpc(jnp.asarray(bits), edges=edges))
-    sigma = np.sqrt(0.5 * 10 ** (-3.6 / 10))
-    y = (1 - 2.0 * cw) + sigma * rng.normal(size=cw.shape)
-    llr = jnp.asarray((2 * y / sigma**2).astype(np.float32))
-    dec = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16",
-                                 backend="fused")
-    out, iters, fail = dec(llr)
-    assert not np.asarray(fail).any()
-    decoded = (np.asarray(out, np.float32) < 0).astype(np.int8)
-    assert np.array_equal(decoded, cw)
-    assert (np.asarray(iters) < 20).all()
-    dec_ee = fec_qc.make_qc_decoder(64800, "4/5", 20, "NMSA", "bf16",
-                                    backend="fused", early_exit=True)
-    out2, iters2, fail2 = dec_ee(llr)
-    assert np.array_equal(np.asarray(out, np.float32),
-                          np.asarray(out2, np.float32))
-    assert np.array_equal(np.asarray(iters), np.asarray(iters2))
-    assert np.array_equal(np.asarray(fail), np.asarray(fail2))
+    llrs = jnp.asarray((1.8 + rng.normal(scale=1.2, size=(n, 3))
+                        ).astype(np.float32))
+    dec = fec_qc.make_qc_decoder(n, R, 4, "MSA", "f32")
+    out, iters, fail = dec(llrs)
+    for c in range(3):
+        o1, i1, f1 = dec(llrs[:, c:c + 1])
+        assert np.array_equal(np.asarray(iters[c:c + 1]), np.asarray(i1))
+        assert np.array_equal(np.asarray(fail[c:c + 1]), np.asarray(f1))
+        assert np.array_equal(np.asarray(out[:, c:c + 1]) < 0,
+                              np.asarray(o1) < 0)
+
 
 @pytest.mark.slow
 def test_dvbs2_fer_waterfall_pinned():
@@ -772,8 +502,7 @@ def test_dvbs2_fer_waterfall_pinned():
 
     n, R, k = 64800, "4/5", 51840
     _, edges = standard_ldpc("DVBS2", n, R)
-    dec = fec_qc.make_qc_decoder(n, R, 20, "NMSA", "bf16", early_exit=True,
-                                 backend="xla")
+    dec = fec_qc.make_qc_decoder(n, R, 20, "NMSA", "bf16", early_exit=True)
     rng = np.random.default_rng(42)
     B, n_chunks = 64, 3
 
@@ -949,51 +678,3 @@ def test_lift_decoder_corrects_errors_and_early_exit():
     assert np.array_equal(np.asarray(b1[0]), cw2)
     for u, v in zip(b1, b2):
         assert np.array_equal(np.asarray(u), np.asarray(v))
-
-
-def test_lift_pallas_iteration_matches_xla():
-    """The fused Pallas lift iteration (kernels/lift_pallas.py, opt-in
-    backend='pallas', interpret on CPU): decisions, iteration counts and
-    fail flags IDENTICAL to the XLA slice-roll path, soft totals to f32
-    sum-order tolerance — for both the fixed-iteration scan and the
-    early-exit while_loop. Also audits that the kernel actually executes
-    (fallback-audit pattern, round-4 lesson) and that ineligible lifts
-    (802.11n Z=81, sublane-unaligned) raise instead of silently routing."""
-    from unittest import mock
-
-    import pytest
-
-    from opticommpy_tpu.comm import fec_lift
-    from opticommpy_tpu.kernels import lift_pallas
-
-    rng = np.random.default_rng(13)
-    n, R, B = 2048, 0.5, 24
-    tb = fec_lift.lift_tables("AR4JA", n, R)
-    ncols = tb["V"] * tb["L"]
-    llrs = jnp.asarray((rng.normal(size=(ncols, B)) * 2 + 1.5
-                        ).astype(np.float32))
-    for ee in (False, True):
-        dx = fec_lift.make_lift_decoder("AR4JA", n, R, 12, "NMSA", "bf16",
-                                        ee, backend="xla")
-        with mock.patch.object(
-                lift_pallas, "lift_iter_pallas",
-                wraps=lift_pallas.lift_iter_pallas) as spy:
-            dp = fec_lift._make_lift_decoder("AR4JA", n, R, 12, "NMSA",
-                                             "bf16", ee, "pallas")
-            ox, ix, fx = dx(llrs)
-            op, ip_, fp = dp(llrs)
-            assert spy.call_count > 0, "pallas lift kernel never ran"
-        assert bool(jnp.all((ox > 0) == (op > 0))), ee
-        assert bool(jnp.all(ix == ip_)), ee
-        assert bool(jnp.all(fx == fp)), ee
-        rel = float(jnp.max(jnp.abs(ox - op)) / jnp.max(jnp.abs(ox)))
-        assert rel < 1e-5, (ee, rel)
-
-    # unaligned lift (802.11n Z=81) must raise, not silently fall back
-    with pytest.raises(ValueError, match="L%8"):
-        fec_lift._make_lift_decoder("IEEE_802.11nD2", 1944, 0.5, 12,
-                                    "NMSA", "bf16", False, "pallas")
-    # 'auto' resolves to the XLA path (kernel is explicit opt-in)
-    dauto = fec_lift.make_lift_decoder("AR4JA", n, R, 12, "NMSA", "bf16")
-    assert dauto is fec_lift._make_lift_decoder(
-        "AR4JA", n, R, 12, "NMSA", "bf16", False, "xla")

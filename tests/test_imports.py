@@ -40,10 +40,19 @@ MODULES = [
     "opticommpy_tpu.parallel.mesh",
     "opticommpy_tpu.parallel.sharded",
     "opticommpy_tpu.parallel.distributed",
-    "opticommpy_tpu.kernels.bps_pallas",
+    "opticommpy_tpu.backend",
+    "opticommpy_tpu.kernels",
+    "opticommpy_tpu.kernels._util",
+    "opticommpy_tpu.kernels.mimo_pallas",
+    "opticommpy_tpu.comm.fec_qc",
+    "opticommpy_tpu.comm.fec_lift",
+    "opticommpy_tpu.comm.codes",
+    "opticommpy_tpu.utils.compile_cache",
+    "opticommpy_tpu.native",
     "opticommpy_tpu.pipelines",
     "opticommpy_tpu.plot",
     "opticommpy_tpu.compat",
+    "chip_smoke",
 ]
 
 

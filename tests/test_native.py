@@ -62,7 +62,7 @@ def test_read_alist_dense_roundtrip_native():
 def test_python_fallback_env_gate(monkeypatch, tmp_path):
     # force the fallback and check identical output
     H_native = fec.read_alist(SMALL)
-    monkeypatch.setenv("OPTICOMMPY_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("OPTICOMMPY_NO_NATIVE", "1")
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_LIB_TRIED", False)
     H_py = fec.read_alist(SMALL)

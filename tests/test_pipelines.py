@@ -58,7 +58,8 @@ def test_coherent_pipeline_one_jit():
 
 
 def test_coherent_pipeline_pallas_backend():
-    """The same one-jit chain with the Pallas 2x2 LMS equalizer backend."""
+    """The same one-jit chain with the equalizer stages on the Pallas
+    kernel (in the interpreter on the CPU)."""
     key = jax.random.PRNGKey(34)
     k_tx, k_ch, k_lo, k_rx = jax.random.split(key, 4)
     cfg_tx = WDMTxConfig(M=16, Rs=32e9, SpS=8, nBits=2**15, nChannels=1,
@@ -80,7 +81,7 @@ def test_coherent_pipeline_pallas_backend():
 
     cfg = CoherentDSPConfig(SpS_in=cfg_tx.SpS, nFilterTaps=512, L=100,
                             nTrain=6000, mu=(2e-3, 1e-3), eqBackend="pallas",
-                            cprBackend="pallas")
+                            interpret=True)
     y, _ = jax.jit(lambda s, d: coherent_dsp_chain(s, d, cfg))(sig_rx, d_ref)
     disc = 7000
     ber, _, _ = fast_ber_calc(y[disc:-100], d_ref[disc:-100], 16, "qam")
@@ -144,7 +145,7 @@ def test_coherent_pipeline_with_clock_recovery():
     CR-chain BER 0.0033 (CPU mesh, this exact seed)."""
     sig_off, d_cr = _cr_offset_scenario()
     cfg = CoherentDSPConfig(SpS_in=8, nFilterTaps=512, L=50, nTrain=4000,
-                            runCR=True, crBackend="scan", crNyquist=True,
+                            runCR=True, crNyquist=True,
                             crKp=2e-3, crKi=1e-5)
     chain = jax.jit(lambda s, d: coherent_dsp_chain(s, d, cfg))
     y, _ = chain(sig_off, d_cr)
@@ -240,7 +241,7 @@ def test_coherent_pipeline_4x4_modes():
         cfg = CoherentDSPConfig(
             SpS_in=sps, SpS_dsp=sps, nFilterTaps=257, rollOff=0.1, L=0.5,
             nTaps=15, mu=(5e-3, 1e-3), nTrain=6000, runFOE=False,
-            eqBackend=backend, cprBackend="pallas")
+            eqBackend=backend, interpret=True)
         y, _ = jax.jit(lambda s, d: coherent_dsp_chain(s, d, cfg))(sig, ref)
         assert y.shape[1] == modes
         disc = 8000
@@ -332,7 +333,6 @@ def test_coherent_dsp_serve_sharded_batch():
     fn = jax.shard_map(
         lambda s, h: coherent_dsp_serve(s, h, cfg)[0],
         mesh=mesh, in_specs=(P("data"), P("data")), out_specs=P("data"),
-        check_vma=False,  # pallas_call does not declare varying-axes metadata
     )
     out = fn(jnp.asarray(sig_b), jnp.asarray(H_b))
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
@@ -372,10 +372,11 @@ def test_coherent_dsp_chain_batch_converges():
     cfg = CoherentDSPConfig(SpS_in=8, nFilterTaps=512, L=50, nTrain=3000,
                             mu=(2e-3,))
     y_b, _ = coherent_dsp_chain_batch(sig_b, ref_b, cfg)
-    # eqBackend='pallas': the full multi-stage schedule on the batched
-    # kernels (mimo_adapt_equalizer_batch) recovers the same links
+    # eqBackend='pallas': the same multi-stage schedule with every kernel
+    # stage's recurrences in one launch recovers the same links
     cfg_ms = CoherentDSPConfig(SpS_in=8, nFilterTaps=512, L=50, nTrain=3000,
-                               mu=(5e-3, 2e-3), eqBackend="pallas")
+                               mu=(5e-3, 2e-3), eqBackend="pallas",
+                               interpret=True)
     y_ms, _ = coherent_dsp_chain_batch(sig_b, ref_b, cfg_ms)
     disc = 4000
     for i in range(2):
@@ -388,7 +389,7 @@ def test_coherent_dsp_chain_batch_converges():
 
 
 def test_coherent_coded_serve_end_to_end():
-    """Complete coded receiver in one jit: serving DSP chain -> MXU bit
+    """Complete coded receiver in one jit: serving DSP chain -> bit
     LLRs -> LDPC BP. Loopback RRC 16QAM with AWGN; all codewords clear of
     the FIR edge transients decode error-free (802.11n 648b R1/2)."""
     from opticommpy_tpu.comm.codes import ldpc_parity_matrix

@@ -5,10 +5,13 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from opticommpy_tpu.comm import modulate_gray
-from opticommpy_tpu.ops import pnorm
-from opticommpy_tpu.plot import (
+pytest.importorskip("matplotlib")  # plot.py's one dependency beyond JAX
+
+from opticommpy_tpu.comm import modulate_gray  # noqa: E402
+from opticommpy_tpu.ops import pnorm  # noqa: E402
+from opticommpy_tpu.plot import (  # noqa: E402
     animate_const_gif,
     const_hist,
     eyediagram,

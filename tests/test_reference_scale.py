@@ -4,8 +4,7 @@ Runs the 11-channel WDM polmux chain and the DBP chain at the reference
 notebook scale (`/root/reference/examples/test_WDM_transmission.ipynb` /
 `test_NLC_withDBP_WDM_transmission.ipynb` workload shapes) and asserts the
 committed physics numbers. Pinned from a full-scale run of this repo
-(2026-08-20, CPU mesh; the TPU backend matches CPU to ~1e-5 relative on
-these chains, .claude/skills/verify):
+(2026-08-20, CPU mesh):
 
 - wdm_11ch_transmission (11ch 16-QAM polmux, 500 km, 32768 sym/pol):
     BER   ~ [1.61e-4, 1.87e-4]
@@ -32,7 +31,7 @@ EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.dirname(
 def _run(name, timeout=900):
     env = dict(os.environ)
     env.update(MPLBACKEND="Agg")
-    env.pop("OPTICOMMPY_TPU_FAST", None)  # full notebook scale
+    env.pop("OPTICOMMPY_FAST", None)  # full notebook scale
     proc = subprocess.run(
         [sys.executable, os.path.join(EXAMPLES_DIR, name), "--cpu"],
         capture_output=True, text=True, timeout=timeout, env=env,

@@ -46,17 +46,8 @@ MODULES = [
     "opticommpy_tpu.parallel",
     "opticommpy_tpu.parallel.sharded",
     "opticommpy_tpu.parallel.distributed",
-    "opticommpy_tpu.kernels.matmul_fft",
     "opticommpy_tpu.kernels.mimo_pallas",
-    "opticommpy_tpu.kernels.rls_pallas",
-    "opticommpy_tpu.kernels.bps_pallas",
-    "opticommpy_tpu.kernels.ddpll_pallas",
-    "opticommpy_tpu.kernels.dfe_pallas",
-    "opticommpy_tpu.kernels.gardner_pallas",
-    "opticommpy_tpu.kernels.ldpc_pallas",
-    "opticommpy_tpu.kernels.qc_pallas",
-    "opticommpy_tpu.kernels.qc_mega",
-    "opticommpy_tpu.kernels.volterra_pallas",
+    "opticommpy_tpu.backend",
     "opticommpy_tpu.native",
     "opticommpy_tpu.utils.units",
     "opticommpy_tpu.utils.bits",
